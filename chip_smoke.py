@@ -19,8 +19,18 @@ a line of its own:
    serve 1,024 queries through the wave scheduler (one fused
    ``ivf_scan_merge`` launch per chunk), and check it against fused
    ``search``, the per-probe kernel pair and brute force;
-4. each kernel's time (CUDA events) beside its plain version, a library
-   yardstick the port never calls, and its bound.
+4. the live index on that index (``LiveIndex``, delta capacity 4,096):
+   1,024 adds and 256 deletes before serving, then the same 1,024
+   queries served through a version registry while every wave adds 64
+   docs, deletes 16 earlier adds and publishes, with ``merge_delta``
+   every 16 waves (the reference CLI's ``--mutation-rate 64
+   --merge-every 16 --delta-cap 4096``): every wave is one fused launch
+   with the delta stream; recall against the static serve; then the
+   final live index against its rebuilt twin and the per-probe kernel
+   pair (bit for bit) and against brute force over its net corpus;
+5. each kernel's time (CUDA events) beside its plain version, a library
+   yardstick the port never calls, and its bound; a profiled static and
+   live serve.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -41,11 +51,19 @@ SRC = ROOT / "src"
 
 # main-path shapes (configs/msmarco_ivf.py, serving at wave 128, chunk 4)
 B, D, LIST_PAD, BLK_L, K, CHUNK = 128, 768, 256, 64, 100, 4
+# the live stream: the reference CLI's --delta-cap 4096 --mutation-rate 64
+# --merge-every 16, after a pre-serve burst of adds and deletes
+CAP, MUTATION_RATE, MERGE_EVERY = 4096, 64, 16
+PRE_ADDS, PRE_DELETES = 1024, 256
+RECALL_GAP_MAX = 0.01          # the reference's make bench-smoke gate
 N_PROBE, TAU, DELTA, PHI = 80, 10, 7, 95.0
 N_DOCS, N_CLUSTERS, N_QUERIES = 1_000_000, 8192, 1024
 # noise norm spread * sqrt(d) = 2, as the reference CLI's default corpus
 # (dim 64, spread 0.25); at spread 0.25 and d=768 noise drowns clusters
 SPREAD = 0.25 * math.sqrt(64 / 768)
+# added docs' noise: the reference CLI's scale 0.05 at dim 64, rescaled so
+# the noise norm (0.4) is the same at d=768
+NOISE = 0.05 * math.sqrt(64 / 768)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32, outside the tensor cores
 ATOL = 1e-5
@@ -91,14 +109,24 @@ def main() -> None:
                                   policies, search)
     from repro_torch.core.serving import WaveScheduler
     from repro_torch.data.synthetic import clustered_corpus, relevant_docs
+    from repro_torch.index import (IndexRegistry, LiveIndex,
+                                   assign_clusters, version_of)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import delta_scan as k_ds
     from repro_torch.kernels import ivf_scan as k_scan
     from repro_torch.kernels import ivf_scan_merge as k_sm
     from repro_torch.kernels import topk_merge as k_tm
+    from repro_torch.launch.serve import mutation_stream
 
     dev = torch.device("cuda", 0)
-    wrappers = {"ivf_scan": k_scan.ivf_scan, "topk_merge": k_tm.topk_merge,
-                "ivf_scan_merge": k_sm.ivf_scan_merge}
+    # each kernel's launch counter: (wrapper, attribute); the fused kernel
+    # counts its launches with and without the delta stream apart
+    counters = {"ivf_scan": (k_scan.ivf_scan, "launches"),
+                "topk_merge": (k_tm.topk_merge, "launches"),
+                "ivf_scan_merge": (k_sm.ivf_scan_merge, "launches"),
+                "delta_scan": (k_ds.delta_scan, "launches"),
+                "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
+                                         "delta_launches")}
 
     def sync():
         torch.cuda.synchronize(dev)
@@ -116,7 +144,7 @@ def main() -> None:
 
     # -- 2. each kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
-    max_err = {name: 0.0 for name in wrappers}
+    max_err = {name: 0.0 for name in counters}
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -150,30 +178,70 @@ def main() -> None:
                                      f"and are not near ties")
         return int(diff.sum()), err
 
+    def draw(integer, shape):
+        if integer:
+            return rng.integers(-2, 3, shape).astype(np.float32)
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
     def kernel_inputs(integer: bool, n_lists: int = 256):
-        def draw(shape):
-            if integer:
-                return rng.integers(-2, 3, shape).astype(np.float32)
-            x = rng.normal(size=shape).astype(np.float32)
-            return x / np.linalg.norm(x, axis=-1, keepdims=True)
-        docs = draw((n_lists * LIST_PAD + LIST_PAD, D))
+        def draw_(shape):
+            return draw(integer, shape)
+        docs = draw_((n_lists * LIST_PAD + LIST_PAD, D))
         # doc ids differ from row positions, so a kernel that wrote the
         # row instead of ids[row] would fail
         ids = rng.permutation(docs.shape[0]).astype(np.int32)
         ids[rng.random(ids.size) < 0.02] = -1          # tombstones
         ids[n_lists * LIST_PAD:] = -1
-        q = draw((B, D))
+        q = draw_((B, D))
         offs = np.stack([rng.choice(n_lists, CHUNK, replace=False)
                          for _ in range(B)]) * LIST_PAD
         sizes = rng.integers(0, LIST_PAD + 1, (B, CHUNK))
         sizes[:, 0] = LIST_PAD
-        run_s = -np.sort(-draw((B, K)), axis=1)
+        run_s = -np.sort(-draw_((B, K)), axis=1)
         run_i = rng.integers(n_lists * LIST_PAD, 1 << 29, (B, K))
         run_s[:, K - 10:], run_i[:, K - 10:] = -np.inf, -1   # empty slots
         return [t(a) for a in (q, docs, ids.reshape(-1, BLK_L),
                                (offs // BLK_L).astype(np.int32).reshape(-1),
                                sizes.astype(np.int32).reshape(-1), run_s,
                                run_i.astype(np.int32))]
+
+    def delta_inputs(integer: bool, boffs, n_lists: int = 256):
+        """A CAP-slot delta stream for kernel_inputs' probes: ids a random
+        permutation past the doc ids, a fifth of the slots tombstoned
+        (-1), the last tenth empty (id and assign -1), an eighth of the
+        buffer assigned to one probed list, and gates of -2 past the
+        budget on some slots."""
+        cids = (boffs.view(B, CHUNK).long() * BLK_L // LIST_PAD).cpu().numpy()
+        dvecs = draw(integer, (CAP, D))
+        dids = (rng.permutation(CAP) + (n_lists + 1) * LIST_PAD
+                ).astype(np.int32)
+        dassign = rng.integers(0, n_lists, CAP).astype(np.int32)
+        dassign[:CAP // 8] = cids[0, 1]
+        dids[rng.random(CAP) < 0.2] = -1
+        dids[CAP - CAP // 10:], dassign[CAP - CAP // 10:] = -1, -1
+        gates = cids.astype(np.int32)
+        gates[1:9, 2:] = -2
+        return dict(zip(("delta_vecs", "delta_ids", "delta_assign",
+                         "gate_cids"),
+                        (t(a) for a in (dvecs, dids, dassign,
+                                        gates.reshape(-1)))))
+
+    def check_fused(g, w, integer, what, name):
+        """A fused launch against its plain version: bit-equal on integer
+        inputs, else scores within ATOL with near-tie id swaps only."""
+        if integer:
+            if not all(torch.equal(x, y) for x, y in zip(g, w)):
+                raise AssertionError(f"{what}: not bit-equal")
+            print(f"{what}: bit-equal")
+            return
+        swaps, err = near_tie_swaps(g[0], g[1], w[0], w[1], what)
+        rows_swapped = (g[1] != w[1]).any(-1)
+        if ((g[2] != w[2]) & ~rows_swapped).any():
+            raise AssertionError(f"{what}: counts differ without an id swap")
+        max_err[name] = max(max_err[name], err)
+        print(f"{what}: max_abs_err {err}, near-tie id swaps {swaps}, "
+              f"count mismatches {int((g[2] != w[2]).sum())}")
 
     with phase("kernels_vs_plain"):
         for label, integer in (("a", True), ("b", False)):
@@ -213,24 +281,32 @@ def main() -> None:
                                           run_s, run_i, k=K,
                                           list_pad=LIST_PAD, chunk=CHUNK,
                                           blk_l=BLK_L)
-            if integer:
-                if not all(torch.equal(x, y) for x, y in zip(g, w)):
-                    raise AssertionError("ivf_scan_merge (a): not bit-equal")
-                print("ivf_scan_merge (a): bit-equal")
-            else:
-                swaps, err = near_tie_swaps(g[0], g[1], w[0], w[1],
-                                            "ivf_scan_merge (b)")
-                rows_swapped = (g[1] != w[1]).any(-1)
-                bad_cnt = (g[2] != w[2]) & ~rows_swapped
-                if bad_cnt.any():
-                    raise AssertionError("ivf_scan_merge (b): counts differ "
-                                         "without an id swap")
-                max_err["ivf_scan_merge"] = max(max_err["ivf_scan_merge"],
-                                                err)
-                print(f"ivf_scan_merge (b): max_abs_err {err}, near-tie id "
-                      f"swaps {swaps}, count mismatches "
-                      f"{int((g[2] != w[2]).sum())}")
-        del q, docs, ids2d, got, want, g, w
+            check_fused(g, w, integer, f"ivf_scan_merge ({label})",
+                        "ivf_scan_merge")
+            # delta_scan: every query against a CAP-slot buffer
+            dargs = delta_inputs(integer, boffs)
+            got = k_ds.delta_scan(q, dargs["delta_vecs"])
+            sync()
+            want = k_ds.delta_scan_plain(q, dargs["delta_vecs"])
+            err = finite_err(got, want)
+            if integer and not torch.equal(got, want):
+                raise AssertionError("delta_scan (a): not bit-equal")
+            if err > ATOL:
+                raise AssertionError(f"delta_scan ({label}): err {err}")
+            max_err["delta_scan"] = max(max_err["delta_scan"], err)
+            print(f"delta_scan ({label}): max_abs_err {err}")
+            # ivf_scan_merge with the delta stream, same probes
+            g = k_sm.ivf_scan_merge(q, docs, ids2d, boffs, sizes, run_s,
+                                    run_i, k=K, list_pad=LIST_PAD,
+                                    chunk=CHUNK, blk_l=BLK_L, **dargs)
+            sync()
+            w = k_sm.ivf_scan_merge_plain(q, docs, ids2d, boffs, sizes,
+                                          run_s, run_i, k=K,
+                                          list_pad=LIST_PAD, chunk=CHUNK,
+                                          blk_l=BLK_L, **dargs)
+            check_fused(g, w, integer, f"ivf_scan_merge+delta ({label})",
+                        "ivf_scan_merge+delta")
+        del q, docs, ids2d, got, want, g, w, dargs
 
     # -- 3. the main path at the paper's widths -------------------------------
     with phase("corpus"):
@@ -269,16 +345,23 @@ def main() -> None:
     launches = {}
 
     def reset_launches():
-        for w in wrappers.values():
-            w.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
-    def read_launches(path, names):
-        counts = {name: w.launches for name, w in wrappers.items()}
+    def read_launches(path, names, absent=()):
+        """Launches since the last reset: each of ``names`` must have run,
+        none of ``absent``.  A kernel's first path is its JSON row's."""
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
         print(f"launches on path {path}: {json.dumps(counts)}")
         for name in names:
             if counts[name] <= 0:
                 raise AssertionError(f"{name} was not launched on {path}")
-            launches[name] = counts[name]
+            launches.setdefault(name, counts[name])
+        for name in absent:
+            if counts[name]:
+                raise AssertionError(f"{name} ran on {path}")
+        return counts
 
     reset_launches()
     with phase("serve"):
@@ -288,7 +371,8 @@ def main() -> None:
         rep = ws.serve(queries)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1000
-        read_launches("serve (WaveScheduler, fused)", ["ivf_scan_merge"])
+        read_launches("serve (WaveScheduler, fused)", ["ivf_scan_merge"],
+                      absent=["ivf_scan_merge+delta", "delta_scan"])
         served = np.stack([rep.results[i] for i in range(N_QUERIES)])
         probes = np.array([rep.probes[i] for i in range(N_QUERIES)])
         summ = metrics.summarize(served, probes, exact, corpus.relevant,
@@ -332,6 +416,144 @@ def main() -> None:
                                     "full-probe search vs brute force")
         print(f"full-probe search == brute force on 32 queries (max score "
               f"err {err}, near-tie id swaps {swaps})")
+
+    # -- 4. the live index ------------------------------------------------------
+    def fresh_live():
+        """A LiveIndex over ``index`` after the pre-serve burst: PRE_ADDS
+        noisy copies of corpus docs added, PRE_DELETES main docs deleted.
+        Returns it and the deleted ids."""
+        lv = LiveIndex(index, delta_cap=CAP)
+        r = np.random.default_rng(2)
+        src = r.integers(0, N_DOCS, PRE_ADDS)
+        lv.add((corpus.docs[src] + r.normal(scale=NOISE, size=(PRE_ADDS, D))
+                ).astype(np.float32))
+        gone = r.choice(N_DOCS, PRE_DELETES, replace=False)
+        lv.delete(gone)
+        return lv, gone
+
+    def live_serve(lv):
+        """Serve every query against ``lv`` through a registry, with the
+        mutation stream publishing after each wave; ``merge_delta``'s host
+        ms (synchronised) are collected as it runs."""
+        reg = IndexRegistry(version_of(lv))
+        ws_l = WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K,
+                             n_probe=N_PROBE, delta=DELTA, phi=PHI,
+                             registry=reg)
+        mutate, stats = mutation_stream(lv, reg, corpus.docs,
+                                        rate=MUTATION_RATE,
+                                        merge_every=MERGE_EVERY, noise=NOISE)
+        merge, merge_ms = lv.merge_delta, []
+
+        def timed_merge():
+            sync()
+            t0 = time.perf_counter()
+            v = merge()
+            sync()
+            merge_ms.append((time.perf_counter() - t0) * 1000)
+            return v
+
+        lv.merge_delta = timed_merge
+        sync()
+        t0 = time.perf_counter()
+        rep_ = ws_l.serve(queries, on_wave=mutate)
+        sync()
+        wall = (time.perf_counter() - t0) * 1000
+        del lv.merge_delta
+        return rep_, reg, stats, wall, merge_ms
+
+    with phase("live_setup"):
+        live, gone = fresh_live()
+        sync()
+        print(f"live index: {live.n_live} live docs, {len(live.delta)} "
+              f"buffered of {live.delta.capacity}, {live.tombs.count} "
+              f"tombstones")
+
+    reset_launches()
+    with phase("live_serve"):
+        rep_l, reg_l, stats, wall_l, merge_ms = live_serve(live)
+        counts = read_launches("live serve (WaveScheduler, fused, registry)",
+                               ["ivf_scan_merge+delta"],
+                               absent=["ivf_scan_merge", "delta_scan",
+                                       "ivf_scan", "topk_merge"])
+        if counts["ivf_scan_merge+delta"] != rep_l.waves:
+            raise AssertionError("the live serve did not launch the fused "
+                                 "kernel with the stream once per wave")
+        if sorted(rep_l.results) != list(range(N_QUERIES)):
+            raise AssertionError("the live serve did not answer every "
+                                 "query once")
+        served_l = np.stack([rep_l.results[i] for i in range(N_QUERIES)])
+        probes_l = np.array([rep_l.probes[i] for i in range(N_QUERIES)])
+        for row in served_l:
+            real = row[row >= 0]
+            if len(np.unique(real)) != len(real):
+                raise AssertionError("a live result holds a duplicate id")
+        if np.isin(served_l, gone).any():
+            raise AssertionError("a live result holds an id deleted before "
+                                 "serving began")
+        r_static = metrics.r_star_at_k(served, exact)
+        r_live = metrics.r_star_at_k(served_l, exact)
+        live_summ = dict(
+            **stats, versions=live.version, swaps=reg_l.swaps,
+            waves=rep_l.waves, delta_occupancy=live.delta.occupancy(),
+            recall_static=r_static, recall_live=r_live,
+            recall_gap=abs(r_static - r_live), wall_ms=wall_l,
+            queries_per_s=N_QUERIES / (wall_l / 1000),
+            C=float(probes_l.mean()), merge_delta_host_ms=merge_ms)
+        print(json.dumps(live_summ))
+        if live_summ["recall_gap"] > RECALL_GAP_MAX or not stats["merges"]:
+            raise AssertionError(f"live serve off: {live_summ}")
+
+    q256 = queries[:256]
+    with phase("live_vs_rebuilt"):
+        reset_launches()
+        fused_l = live.search(q256, pol, use_fused_kernel=True, chunk=CHUNK)
+        sync()
+        read_launches("live search (fused)", ["ivf_scan_merge+delta"],
+                      absent=["ivf_scan_merge", "delta_scan", "ivf_scan",
+                              "topk_merge"])
+        rebuilt = live.rebuild_equivalent()
+        res_rb = search(rebuilt, q256, pol, use_fused_kernel=True,
+                        chunk=CHUNK)
+        for name in ("topk_ids", "probes", "topk_scores"):
+            if not torch.equal(getattr(fused_l, name), getattr(res_rb, name)):
+                raise AssertionError(f"live fused != rebuilt index on {name}")
+        print(f"live fused search == fused search over rebuild_equivalent() "
+              f"bit for bit on 256 queries (list_pad {rebuilt.list_pad}, "
+              f"C={fused_l.probes.float().mean().item():.4f})")
+        del rebuilt, res_rb
+
+    with phase("live_fused_vs_pair"):
+        reset_launches()
+        pair_l = live.search(q256, pol, use_scan_kernel=True,
+                             use_topk_kernel=True)
+        sync()
+        counts = read_launches("live search (per-probe kernel pair)",
+                               ["ivf_scan", "delta_scan", "topk_merge"],
+                               absent=["ivf_scan_merge",
+                                       "ivf_scan_merge+delta"])
+        if counts["delta_scan"] != 1:
+            raise AssertionError("the pair search scanned the buffer "
+                                 f"{counts['delta_scan']} times, not once")
+        for name in ("topk_ids", "probes", "topk_scores"):
+            if not torch.equal(getattr(fused_l, name), getattr(pair_l, name)):
+                raise AssertionError(f"live fused != live per-probe pair on "
+                                     f"{name}")
+        print("live fused == live per-probe kernel pair bit for bit on 256 "
+              "queries")
+
+    with phase("live_full_probe_vs_brute_force"):
+        vecs_n, ids_n = live.net_corpus()
+        full = live.search(queries[:32],
+                           policies.fixed(index.n_clusters, k=K, tau=TAU),
+                           use_fused_kernel=True, chunk=CHUNK)
+        bs, brows = brute_force(vecs_n, queries[:32], K)
+        bids = torch.as_tensor(ids_n, device=dev)[brows.long()]
+        swaps, err = near_tie_swaps(full.topk_scores, full.topk_ids, bs,
+                                    bids, "live full probe vs brute force")
+        print(f"live full-probe search == brute force over the net corpus "
+              f"({len(ids_n)} docs) on 32 queries (max score err {err}, "
+              f"near-tie id swaps {swaps})")
+        del vecs_n, bs, brows, bids
 
     # -- 4. timing ------------------------------------------------------------
     from torch.autograd import DeviceType
@@ -466,6 +688,65 @@ def main() -> None:
         print(f"timing inputs: ivf_scan {live1} live rows of "
               f"{B * LIST_PAD} tile rows; ivf_scan_merge {live_c} live "
               f"rows of {B * CHUNK * LIST_PAD}")
+        # the delta buffer as the live serve holds it: CAP slots, the
+        # first half live (noisy copies of corpus docs, assigned to their
+        # nearest centroid), the rest empty (zeros, id and assign -1)
+        r = np.random.default_rng(3)
+        n_buf = CAP // 2
+        bvecs = torch.zeros((CAP, D), device=dev)
+        bvecs[:n_buf] = torch.from_numpy((
+            corpus.docs[r.integers(0, N_DOCS, n_buf)]
+            + r.normal(scale=NOISE, size=(n_buf, D))).astype(np.float32)
+        ).to(dev)
+        bids = torch.full((CAP,), -1, dtype=torch.int32, device=dev)
+        bids[:n_buf] = torch.arange(N_DOCS, N_DOCS + n_buf, device=dev,
+                                    dtype=torch.int32)
+        bassign = torch.full((CAP,), -1, dtype=torch.int32, device=dev)
+        bassign[:n_buf] = assign_clusters(bvecs[:n_buf], index.centroids)
+        stream = dict(delta_vecs=bvecs, delta_ids=bids,
+                      delta_assign=bassign,
+                      gate_cids=cids.to(torch.int32).reshape(-1).contiguous())
+        # delta_scan: the first wave's queries against the whole buffer
+        bnd = bound((B * D + CAP * D + B * CAP) * 4, 2 * B * CAP * D)
+        rows.append(dict(
+            name="delta_scan", route="cuda",
+            source="src/repro_torch/csrc/delta_scan.cu",
+            replaces="src/repro/kernels/delta_scan.py:31",
+            ms=time_call("delta_scan", lambda: k_ds.delta_scan(qb, bvecs),
+                         50),
+            plain_ms=time_call("delta_scan plain",
+                               lambda: k_ds.delta_scan_plain(qb, bvecs), 10),
+            bound=bnd,
+            library_ms=time_call("torch.matmul (no TF32)",
+                                 lambda: torch.matmul(qb, bvecs.T), 50)))
+        # ivf_scan_merge+delta: the same tiles as ivf_scan_merge, plus the
+        # stream; each query scores the live buffer rows
+        gated = int(sum(((bassign[None, :] == cids[:, j:j + 1]).sum()
+                         for j in range(CHUNK))))
+        bnd = bound(B * D * 4 + live_c * (D * 4 + 4) + B * K * 8
+                    + B * CHUNK * (K * 8 + 4 + 8) + n_buf * D * 4
+                    + CAP * 8 + B * CHUNK * 4,
+                    2 * live_c * D + 2 * B * n_buf * D)
+        rows.append(dict(
+            name="ivf_scan_merge+delta", route="cuda",
+            source="src/repro_torch/csrc/ivf_scan_merge.cu",
+            replaces="src/repro/kernels/ivf_scan_merge.py:109",
+            ms=time_call("ivf_scan_merge+delta",
+                         lambda: k_sm.ivf_scan_merge(
+                             qb, index.docs, ids2d, boffs, szf, empty_s,
+                             empty_i, k=K, list_pad=LIST_PAD, chunk=CHUNK,
+                             blk_l=BLK_L, **stream), 50),
+            plain_ms=time_call(
+                "ivf_scan_merge+delta plain",
+                lambda: k_sm.ivf_scan_merge_plain(
+                    qb, index.docs, ids2d, boffs, szf, empty_s, empty_i,
+                    k=K, list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L,
+                    **stream), 10),
+            bound=bnd, library_ms=None))
+        print(f"timing inputs: delta buffer {n_buf} live slots of {CAP}; "
+              f"ivf_scan_merge+delta gates {gated} buffer entries over "
+              f"{B * CHUNK} slots; without the stream on the same tiles "
+              f"{rows[2]['ms']:.6f} ms")
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:
@@ -493,6 +774,47 @@ def main() -> None:
               f"timed serve; {fused_dev:.3f} ms of device time in the "
               f"profiled serve = {100 * fused_dev / wall_ms:.2f}% of the "
               f"timed serve's {wall_ms:.3f} ms wall")
+
+    with phase("live_serve_profile"):
+        # the same live stream again, from the same start, under the
+        # profiler: the same results, and where its time goes
+        live2, _ = fresh_live()
+        with profile(activities=activities) as prof:
+            rep_p, reg_p, _, wall_p, merge_p = live_serve(live2)
+        if any(not np.array_equal(rep_p.results[i], rep_l.results[i])
+               for i in range(N_QUERIES)):
+            raise AssertionError("a second live serve gave other results")
+        dev_ms = device_ms(prof)
+        busy = sum(v[0] for v in dev_ms.values())
+        fused_dev = sum(v[0] for k_, v in dev_ms.items()
+                        if "ivf_scan_merge" in k_)
+        print(f"profiled live serve: wall {wall_p:.3f} ms, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall_p:.1f}% of wall, idle "
+              f"{100 - 100 * busy / wall_p:.1f}%), "
+              f"{sum(v[1] for v in dev_ms.values())} device operations, "
+              f"{rep_p.waves} waves, merge_delta host ms {merge_p}")
+        for name, (ms, cnt) in sorted(dev_ms.items(),
+                                      key=lambda kv: -kv[1][0])[:12]:
+            print(f"  {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
+        print(f"fused ivf_scan_merge+delta: "
+              f"{launches['ivf_scan_merge+delta']} launches in the timed "
+              f"live serve; {fused_dev:.3f} ms of device time in the "
+              f"profiled one = {100 * fused_dev / wall_l:.2f}% of the timed "
+              f"live serve's {wall_l:.3f} ms wall")
+        # a publish after a mutation: the view's device copy and the dead
+        # lookup's host-to-device copy are both made anew
+        pub_ms = []
+        for i in range(10):
+            added = live2.add(corpus.docs[i: i + 1])
+            live2.delete(added)
+            sync()
+            t0 = time.perf_counter()
+            reg_p.publish(version_of(live2))
+            sync()
+            pub_ms.append((time.perf_counter() - t0) * 1000)
+        print(f"publish after a mutation: host ms median "
+              f"{float(np.median(pub_ms)):.3f} over 10 (min "
+              f"{min(pub_ms):.3f}, max {max(pub_ms):.3f})")
 
     kernels = []
     for r in rows:

@@ -1,10 +1,11 @@
 """IVF two-level index + batched adaptive (early-exit) A-kNN search.
 
-Port of ``repro.core.ivf`` (static index, no delta buffer).  Document
-embeddings are stored cluster-major and every inverted list is at most
-``list_pad`` rows (oversized k-means clusters are 2-means split at
-build time), so one probe scores one contiguous ``(list_pad, d)`` tile
-per query and merges it into the running top-k.  The reference's
+Port of ``repro.core.ivf``, with the live index's delta overlay
+(``search(delta=...)``; the buffer itself is in ``repro_torch.index``).
+Document embeddings are stored cluster-major and every inverted list
+is at most ``list_pad`` rows (oversized k-means clusters are 2-means
+split at build time), so one probe scores one contiguous
+``(list_pad, d)`` tile per query and merges it into the running top-k.  The reference's
 ``lax.while_loop`` becomes a host loop over probe chunks with a
 per-query *active* mask; the loop ends when every query exited or the
 probe budget is spent.
@@ -24,6 +25,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import kmeans as km
 from repro_torch.core.policies import Policy, policy_step
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.delta_scan import delta_scan_plain
 from repro_torch.kernels.ivf_scan import score_rows
 
 
@@ -45,6 +47,31 @@ class IVFIndex:
     @property
     def dim(self) -> int:
         return self.centroids.shape[1]
+
+
+class DeltaView(NamedTuple):
+    """Device view of the live index's delta buffer
+    (``repro_torch.index``).
+
+    Fixed-capacity tensors on the index's device; empty (or tombstoned)
+    slots carry id -1.  ``assign`` is the nearest-centroid cluster each
+    buffered vector will be merged into, which gates *when* it becomes
+    visible to a query: a delta vector is merged into the running top-k
+    at the probe of its assigned cluster, so results are bit-identical
+    to a rebuilt index holding the same net corpus for every exit
+    policy.
+    """
+    vecs: torch.Tensor     # (cap, d) f32
+    ids: torch.Tensor      # (cap,) int32 external doc ids, -1 empty
+    assign: torch.Tensor   # (cap,) int32 assigned cluster, -1 empty
+
+
+def check_same_device(dev: torch.device, what: str, *tensors) -> None:
+    """Raise unless every tensor lies on ``dev``: nothing is copied."""
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what} lies on {t.device}, the index on "
+                             f"{dev}; build it there")
 
 
 def index_device(index: IVFIndex, device: DeviceLike = None) -> torch.device:
@@ -211,6 +238,24 @@ def _probe_tiles(index: IVFIndex, cids: torch.Tensor
     return index.docs[rows], ids, mask
 
 
+def _is_dead(ids: torch.Tensor, dead: torch.Tensor) -> torch.Tensor:
+    """Which ids the (id_capacity,) bool tombstone lookup marks."""
+    return dead[ids.clamp(0, dead.shape[0] - 1).long()] & (ids >= 0)
+
+
+def _scrub_dead(scores: torch.Tensor, ids: torch.Tensor, dead: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask candidates whose external id is tombstoned.
+
+    ``dead`` is the cumulative (id_capacity,) bool lookup from
+    ``repro_torch.index``; needed when a running top-k can carry ids
+    that were deleted *after* they were merged (version swaps
+    mid-query)."""
+    gone = _is_dead(ids, dead)
+    return (torch.where(gone, float("-inf"), scores),
+            torch.where(gone, -1, ids))
+
+
 def _merge_topk(scores: torch.Tensor, ids: torch.Tensor,
                 new_scores: torch.Tensor, new_ids: torch.Tensor, k: int,
                 use_kernel: bool = False
@@ -224,6 +269,7 @@ def _merge_topk(scores: torch.Tensor, ids: torch.Tensor,
 
 
 def search(index: IVFIndex, queries, policy: Policy, *,
+           delta: Optional[DeltaView] = None,
            use_scan_kernel: bool = False, use_topk_kernel: bool = False,
            use_fused_kernel: bool = False, chunk: int = 1,
            blk_l: int = 64, device: DeviceLike = None) -> SearchResult:
@@ -237,8 +283,21 @@ def search(index: IVFIndex, queries, policy: Policy, *,
     ``topk_merge`` kernels; ``use_fused_kernel`` routes each chunk
     through one ``ivf_scan_merge`` launch, and phi comes from its
     per-probe new-entry counts.
+
+    ``delta`` (live index, ``repro_torch.index``): a fixed-capacity
+    buffer of recently added vectors, on the index's device.  It is
+    scored once per call — by ``delta_scan`` on the per-probe paths (the
+    kernel with ``use_scan_kernel``, its plain version otherwise), or
+    inside the fused kernel as its delta stream — and each entry is
+    merged into the running top-k at the probe of its *assigned*
+    cluster, so phi/patience accounting — and therefore the result — is
+    bit-identical to searching a rebuilt index that physically contains
+    the delta docs in those lists.  Tombstoned docs carry id -1 and are
+    masked on every path.
     """
     dev = index_device(index, device)
+    if delta is not None:
+        check_same_device(dev, "the delta view", *delta)
     if use_fused_kernel or use_scan_kernel:
         # the kernels trust blk_l-aligned offsets: fail loudly up front
         validate_alignment(index, blk_l=blk_l)
@@ -251,6 +310,20 @@ def search(index: IVFIndex, queries, policy: Policy, *,
 
     _, cluster_rank = top_k(queries @ index.centroids.T, n_rank)  # (B, N)
     cluster_rank = cluster_rank.long()
+
+    if delta is not None and not use_fused_kernel:
+        # one scan of the whole buffer; each entry is *merged* only at
+        # the probe of its assigned cluster
+        d_sc = kops.delta_scan(queries, delta.vecs) if use_scan_kernel \
+            else delta_scan_plain(queries, delta.vecs)          # (B, cap)
+        d_valid = (delta.ids >= 0)[None, :]
+        d_ids = delta.ids[None, :].expand(B, -1)
+
+    def delta_candidates(cids):
+        """(B, cap) delta candidates gated on each query's probe."""
+        gate = d_valid & (delta.assign[None, :] == cids[:, None])
+        return (torch.where(gate, d_sc, float("-inf")),
+                torch.where(gate, d_ids, -1))
 
     def probe_scores(cids):
         rows, ids, mask = _probe_rows(index, cids)
@@ -299,12 +372,17 @@ def search(index: IVFIndex, queries, policy: Policy, *,
             # slots past n_rank get size 0 so they merge nothing
             rel = torch.arange(chunk, device=dev)
             cids = cluster_rank[:, (h + rel).clamp(max=n_rank - 1)]
-            sizes = torch.where((h + rel < n_rank)[None, :],
-                                index.cluster_sizes[cids], 0)
+            slot_ok = (h + rel < n_rank)[None, :]
+            sizes = torch.where(slot_ok, index.cluster_sizes[cids], 0)
+            # the delta buffer rides the kernel as its delta stream;
+            # slots past the budget gate on -2 (an empty slot's assign
+            # is -1, a real cluster id >= 0)
+            dargs = () if delta is None else (
+                *delta, torch.where(slot_ok, cids, -2))
             snap_s, snap_i, cnts = kops.ivf_scan_merge(
                 queries, index.docs, index.doc_ids,
                 index.cluster_offsets[cids], sizes, topk_scores, topk_ids,
-                k=k, list_pad=lp, chunk=chunk, blk_l=blk_l)
+                *dargs, k=k, list_pad=lp, chunk=chunk, blk_l=blk_l)
             for t in range(chunk):
                 phi = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
                 slot_update(h, snap_s[:, t], snap_i[:, t], phi)
@@ -313,6 +391,10 @@ def search(index: IVFIndex, queries, policy: Policy, *,
             for _ in range(chunk):
                 cids = cluster_rank[:, min(h, n_rank - 1)]
                 new_scores, new_ids = probe_scores(cids)
+                if delta is not None:
+                    e_s, e_i = delta_candidates(cids)
+                    new_scores = torch.cat([new_scores, e_s], 1)
+                    new_ids = torch.cat([new_ids, e_i], 1)
                 m_s, m_i = _merge_topk(topk_scores, topk_ids, new_scores,
                                        new_ids, k, use_topk_kernel)
                 slot_update(h, m_s, m_i, None)

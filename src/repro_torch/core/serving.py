@@ -1,5 +1,5 @@
 """Wave-scheduled serving: per-query early exit turned into batch
-throughput (port of ``repro.core.serving``, static index).
+throughput (port of ``repro.core.serving``).
 
 The scheduler advances a wave of W lanes by fixed probe chunks, then
 *compacts*: exited lanes are refilled with queued queries, so the cost
@@ -7,22 +7,29 @@ per query approaches the paper's mean C instead of the batch's max C.
 Lane state is a tuple of (W, ...) tensors on the index's device;
 admission and the chunk advance are tensor ops there, and the host loop
 only moves query ids.  The fused path advances a wave with ONE
-``ivf_scan_merge`` launch per chunk.
+``ivf_scan_merge`` launch per chunk, the live index's delta buffer
+riding it as its delta stream.
 
-The version registry, deadlines (degradation ladder) and background
-rebuilds come with the serving and durability slices of the port.
+With a version registry (``repro_torch.index.IndexRegistry``) the
+scheduler serves the live index: it adopts the registry's current
+version between waves, scrubs tombstoned ids out of running top-k
+state, and drains in-flight lanes before adopting a new epoch.
+Deadlines (the degradation ladder) and background rebuilds come with
+the serving and durability slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike
-from repro_torch.core.ivf import (IVFIndex, _as_queries, _merge_topk,
-                                  _probe_rows, index_device,
+from repro_torch.core.ivf import (DeltaView, IVFIndex, _as_queries,
+                                  _is_dead, _merge_topk, _probe_rows,
+                                  _scrub_dead,
+                                  check_same_device, index_device,
                                   intersection_pct, top_k,
                                   validate_alignment)
 from repro_torch.kernels import ops as kops
@@ -81,7 +88,9 @@ def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
         qid=torch.where(take, new_qid[src], state.qid))
 
 
-def _advance(index: IVFIndex, state: LaneState, *, lane_delta: int,
+def _advance(index: IVFIndex, state: LaneState,
+             dview: Optional[DeltaView] = None,
+             dead: Optional[torch.Tensor] = None, *, lane_delta: int,
              lane_cap: int, chunk: int, k: int, n_probe: int, phi: float,
              use_fused: bool = True) -> LaneState:
     """Advance every active lane by up to ``chunk`` probes.
@@ -93,7 +102,29 @@ def _advance(index: IVFIndex, state: LaneState, *, lane_delta: int,
     for the whole chunk and rolls lane state forward slot by slot from
     the kernel's per-probe snapshots, so mid-chunk exits land on the
     exact probe they would on the per-probe path.
+
+    ``dview``/``dead`` (live index, ``repro_torch.index``): delta
+    entries are scored once per wave — inside the fused kernel, or by
+    ``delta_scan`` on the per-probe path — and merged into a lane's
+    running top-k at the probe of their assigned cluster (the rule of
+    ``core.search``); ``dead`` is the cumulative tombstone lookup,
+    scrubbing running top-k entries deleted after they were merged,
+    which lanes that span a version swap need.
     """
+    if dead is not None:
+        # scrub once per wave: a lane's carry may predate a deletion
+        ts0, ti0 = _scrub_dead(state.topk_scores, state.topk_ids, dead)
+        state = state._replace(topk_scores=ts0, topk_ids=ti0)
+
+    if dview is not None:
+        # burn tombstoned buffer entries to id -1 up front: both paths
+        # then mask them exactly like empty slots
+        d_ids_eff = dview.ids if dead is None \
+            else torch.where(_is_dead(dview.ids, dead), -1, dview.ids)
+        if not use_fused:
+            d_sc = kops.delta_scan(state.qvec, dview.vecs)    # (W, cap)
+            d_valid = (d_ids_eff >= 0)[None, :]
+            d_ids = d_ids_eff[None, :].expand(d_sc.shape[0], -1)
 
     def slot(st: LaneState, ms, mi, phi_v) -> LaneState:
         act = st.active[:, None]
@@ -114,10 +145,16 @@ def _advance(index: IVFIndex, state: LaneState, *, lane_delta: int,
         slot_ok = ((state.h[:, None] + rel) < n_probe) \
             & state.active[:, None]
         sizes = torch.where(slot_ok, index.cluster_sizes[cids], 0)
+        # the delta buffer rides the kernel as its delta stream, gated
+        # per slot on the assigned cluster (see core.ivf.search)
+        dargs = () if dview is None else (
+            dview.vecs, d_ids_eff, dview.assign,
+            torch.where(slot_ok, cids, -2))
         snap_s, snap_i, cnts = kops.ivf_scan_merge(
             state.qvec, index.docs, index.doc_ids,
             index.cluster_offsets[cids], sizes, state.topk_scores,
-            state.topk_ids, k=k, list_pad=index.list_pad, chunk=chunk)
+            state.topk_ids, *dargs, k=k, list_pad=index.list_pad,
+            chunk=chunk)
         st = state
         for t in range(chunk):
             phi_v = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
@@ -131,6 +168,10 @@ def _advance(index: IVFIndex, state: LaneState, *, lane_delta: int,
         rows, ids, mask = _probe_rows(index, cids)
         sc = torch.where(mask, score_rows(st.qvec, index.docs, rows),
                          float("-inf"))
+        if dview is not None:
+            gate = d_valid & (dview.assign[None, :] == cids[:, None])
+            sc = torch.cat([sc, torch.where(gate, d_sc, float("-inf"))], 1)
+            ids = torch.cat([ids, torch.where(gate, d_ids, -1)], 1)
         ms, mi = _merge_topk(st.topk_scores, st.topk_ids, sc, ids, k)
         ti = torch.where(st.active[:, None], mi, st.topk_ids)
         st = slot(st, ms, mi, intersection_pct(st.topk_ids, ti))
@@ -144,17 +185,33 @@ class ServeReport:
     waves: int
     occupancy: float            # mean fraction of busy lanes per wave
     lane_steps: int             # total lane-probe slots spent
+    epoch_swaps: int = 0        # higher-epoch versions adopted (drained)
+    drain_waves: int = 0        # waves spent draining before a swap
 
 
 class WaveScheduler:
     """Throughput-oriented serving loop over the adaptive search, on the
     index's device (a ``device`` that names another raises; the index
-    is never copied)."""
+    is never copied).
+
+    ``registry`` (optional, ``repro_torch.index.IndexRegistry``):
+    between waves the scheduler re-reads ``registry.current()`` and
+    advances against that version's (index, delta view, tombstones) — an
+    atomic swap point.  Mid-flight lanes stay correct across swaps:
+    probes already taken saw buffered docs through the delta overlay,
+    probes still to come see them inside the merged lists (centroids are
+    fixed under mutation, so each lane's cluster_rank stays valid), and
+    the per-wave tombstone scrub evicts results deleted after they were
+    merged.  A version of a HIGHER epoch carries other centroids, so the
+    scheduler drains: it keeps the pinned version, stops admitting,
+    finishes in-flight lanes, and adopts the new epoch once no lane is
+    active.  Every version must lie on the scheduler's device.
+    """
 
     def __init__(self, index: IVFIndex, *, wave_size: int = 64,
                  chunk: int = 8, k: int = 100, n_probe: int = 80,
                  delta: int = 7, phi: float = 95.0, use_fused: bool = True,
-                 device: DeviceLike = None):
+                 registry=None, device: DeviceLike = None):
         self.device = index_device(index, device)
         if use_fused:
             validate_alignment(index)
@@ -166,8 +223,42 @@ class WaveScheduler:
         self.delta = delta
         self.phi = phi
         self.use_fused = use_fused
+        self.registry = registry
+        self._pinned = None        # version lanes are probing against
 
-    def serve(self, queries, *, compact: bool = True) -> ServeReport:
+    def _refresh_pin(self, active_any: bool) -> Tuple[bool, bool]:
+        """Adopt the registry's current version if lanes allow it.
+
+        Same-epoch updates (merge_delta, mutations) adopt at once — the
+        wave-granular swap mid-flight lanes tolerate.  A higher-epoch
+        version only lands once no lane is active; until then the
+        scheduler reports *drain* and the caller stops admitting.
+        Returns ``(draining, swapped)``.
+        """
+        if self.registry is None:
+            return False, False
+        cur = self.registry.current()
+        if cur.epoch == self._pinned.epoch:
+            self._pinned = cur
+            return False, False
+        if active_any:
+            return True, False     # drain: finish lanes on the old epoch
+        self._pinned = cur
+        return False, True
+
+    def _version(self):
+        if self.registry is None:
+            return self.index, None, None
+        ver = self._pinned
+        check_same_device(self.device, "a published version",
+                          ver.index.docs)
+        return ver.index, ver.delta, ver.dead
+
+    def serve(self, queries, *, compact: bool = True,
+              on_wave: Optional[Callable[[int], None]] = None
+              ) -> ServeReport:
+        """Serve every query; ``on_wave(w)`` runs on the host after wave
+        ``w`` (1-based) — the hook a mutation stream publishes from."""
         queries = _as_queries(queries, self.device)
         nq, d = queries.shape
         state = _empty_state(self.w, d, self.n, self.k, self.device)
@@ -177,8 +268,11 @@ class WaveScheduler:
         waves = 0
         occ = []
         lane_steps = 0
+        epoch_swaps = drain_waves = 0
         prev_active = np.zeros(self.w, bool)
         prev_qids = np.full(self.w, -1, np.int32)
+        self._pinned = None if self.registry is None \
+            else self.registry.current()
         while True:
             active = state.active.cpu().numpy()
             # harvest exits: lanes that flipped active->inactive
@@ -191,14 +285,19 @@ class WaveScheduler:
                     qid = int(prev_qids[lane])
                     results[qid] = ids[j]
                     probes[qid] = int(hs[j])
-            if (compact or not active.any()) and next_q < nq \
-                    and (~active).any():
+            # epoch-fenced version adoption
+            draining, swapped = self._refresh_pin(bool(active.any()))
+            epoch_swaps += swapped
+            drain_waves += draining
+            index, dview, dead = self._version()
+            if (compact or not active.any()) and not draining \
+                    and next_q < nq and (~active).any():
                 room = int((~active).sum())
                 batch = queries[next_q: next_q + room]
                 qids = torch.arange(next_q, next_q + batch.shape[0],
                                     dtype=torch.int32, device=self.device)
-                state = _admit(state, self.index.centroids, batch, qids,
-                               self.n)
+                # admissions rank clusters against the epoch they probe
+                state = _admit(state, index.centroids, batch, qids, self.n)
                 next_q += batch.shape[0]
                 active = state.active.cpu().numpy()
             if not active.any() and next_q >= nq:
@@ -207,10 +306,13 @@ class WaveScheduler:
             lane_steps += self.w * self.chunk
             prev_active = active
             prev_qids = state.qid.cpu().numpy()
-            state = _advance(self.index, state, lane_delta=self.delta,
-                             lane_cap=self.n, chunk=self.chunk, k=self.k,
-                             n_probe=self.n, phi=self.phi,
-                             use_fused=self.use_fused)
+            state = _advance(index, state, dview, dead,
+                             lane_delta=self.delta, lane_cap=self.n,
+                             chunk=self.chunk, k=self.k, n_probe=self.n,
+                             phi=self.phi, use_fused=self.use_fused)
             waves += 1
+            if on_wave is not None:
+                on_wave(waves)
         return ServeReport(results, probes, waves,
-                           float(np.mean(occ)) if occ else 0.0, lane_steps)
+                           float(np.mean(occ)) if occ else 0.0, lane_steps,
+                           epoch_swaps=epoch_swaps, drain_waves=drain_waves)

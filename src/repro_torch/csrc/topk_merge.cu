@@ -13,7 +13,11 @@
 // __syncthreads.  Design: one CTA per row with m_pad / 2 threads, so
 // every pass is one compare-exchange per thread on 64-bit records in
 // shared memory (one compare and one swap per record, as the packed TPU
-// network does with one shuffle and one select).
+// network does with one shuffle and one select).  The records live in
+// dynamic shared memory: the live per-probe pair merges k + list_pad +
+// cap columns (8,192 records, 64 KB, at k=100, list_pad=256, cap=4096),
+// past the 48 KB default, so the entry point opts in to what the wrapper
+// checked the card allows.
 #include <cuda_runtime.h>
 
 #include "packed_sort.cuh"
@@ -57,7 +61,12 @@ extern "C" int topk_merge(const float* s, const int* ids, const float* ns,
                           const int* nids, float* out_s, int* out_i, int B,
                           int k0, int L, int k, int m_pad, void* stream) {
   const int threads = m_pad / 2 < 32 ? 32 : (m_pad / 2 > 1024 ? 1024 : m_pad / 2);
-  topk_merge_kernel<<<B, threads, m_pad * sizeof(long long),
+  const size_t smem = m_pad * sizeof(long long);
+  const cudaError_t set = cudaFuncSetAttribute(
+      topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  topk_merge_kernel<<<B, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       s, ids, ns, nids, out_s, out_i, k0, L, k, m_pad);
   return static_cast<int>(cudaGetLastError());

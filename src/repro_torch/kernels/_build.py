@@ -32,10 +32,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ivf_scan": [_P] * 4 + [_I] * 4 + [_P],
     "topk_merge": [_P] * 6 + [_I] * 5 + [_P],
-    "ivf_scan_merge": [_P] * 10 + [_I] * 7 + [_P],
+    "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
+    "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
 }
+# C entry points that launch nothing (no stream, an int result)
+_QUERIES = {"max_shared_optin": [_I]}
+# a block's dynamic shared memory needs no opt-in up to this size
+DEFAULT_SMEM = 48 * 1024
 
 _lib: Optional[ctypes.CDLL] = None
+_smem_optin = {}
 
 
 def _nvcc() -> str:
@@ -99,7 +105,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -117,6 +123,31 @@ def launch(name: str, dev, *args) -> None:
             *args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with error {rc}")
+
+
+def max_shared_optin(dev) -> int:
+    """The most dynamic shared memory a block may opt in to on CUDA
+    device ``dev`` (232,448 bytes on an H100)."""
+    index = dev.index if dev.index is not None else 0
+    if index not in _smem_optin:
+        v = library().max_shared_optin(index)
+        if v <= 0:
+            raise RuntimeError(f"cannot read the shared memory limit of "
+                               f"cuda:{index}")
+        _smem_optin[index] = v
+    return _smem_optin[index]
+
+
+def check_smem(name: str, dev, n_bytes: int, shape: str) -> None:
+    """Raise unless ``n_bytes`` of dynamic shared memory (past 48 KB, by
+    the kernel's opt-in) fit one block on ``dev``; ``shape`` names the
+    arguments that sized it."""
+    if n_bytes <= DEFAULT_SMEM:
+        return
+    limit = max_shared_optin(dev)
+    if n_bytes > limit:
+        raise ValueError(f"{name}: {shape} need {n_bytes} bytes of shared "
+                         f"memory per block; the card allows {limit}")
 
 
 def check_inputs(name: str, **specs):

@@ -17,8 +17,14 @@ from repro_torch.kernels import _build
 def score_rows(queries: torch.Tensor, docs: torch.Tensor,
                rows: torch.Tensor) -> torch.Tensor:
     """(B, d) queries against ``docs[rows]`` for (B, L) row indices ->
-    (B, L) f32: the plain scoring every IVF path shares."""
-    return torch.einsum("bld,bd->bl", docs[rows], queries)
+    (B, L) f32: the plain scoring every IVF path shares.
+
+    Products, then a sum over d: each score is reduced on its own, so a
+    row scores the same bits whatever the batch shape and its position
+    in it (a batched matmul picks its summation order by shape).  That
+    keeps the plain paths' "live overlay == rebuilt index" bit-exact: a
+    buffered doc and the same doc in a list score alike."""
+    return (docs[rows] * queries[:, None, :]).sum(-1)
 
 
 def ivf_scan_plain(queries: torch.Tensor, docs: torch.Tensor,

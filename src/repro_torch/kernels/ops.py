@@ -5,6 +5,8 @@ plain PyTorch version on CPU tensors (see the kernel modules).  What
 the reference's ``ops`` layer does around its kernels happens here:
 the -inf masking of ``ivf_scan``, the -1 padding of ``ids2d``, offsets
 in ``blk_l`` units, and the sentinel -> -inf map of ``ivf_scan_merge``.
+The delta buffer needs no padding here: the CUDA kernels take any
+capacity, where the Pallas kernel wanted ``blk_dl`` multiples.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import delta_scan as _ds
 from repro_torch.kernels import ivf_scan as _scan
 from repro_torch.kernels import ivf_scan_merge as _sm
 from repro_torch.kernels import topk_merge as _tm
@@ -33,8 +36,9 @@ def ivf_scan(queries, docs, offsets, sizes, *, list_pad: int,
 
 
 def ivf_scan_merge(queries, docs, doc_ids, offsets, sizes, run_scores,
-                   run_ids, *, k: int, list_pad: int, chunk: int,
-                   blk_l: int = 64
+                   run_ids, delta_vecs=None, delta_ids=None,
+                   delta_assign=None, gate_cids=None, *, k: int,
+                   list_pad: int, chunk: int, blk_l: int = 64
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused multi-probe scan -> running top-k merge (one launch per
     ``chunk`` probes).
@@ -44,7 +48,15 @@ def ivf_scan_merge(queries, docs, doc_ids, offsets, sizes, run_scores,
     running top-k.  Returns ((B, chunk, k) snapshot scores with -inf
     empty slots, (B, chunk, k) snapshot ids, (B, chunk) new-entry
     counts with phi = 100 * (k - count) / k).
+
+    Live-index overlay (all four together or none): delta_vecs (cap, d)
+    / delta_ids / delta_assign (cap,) — the delta buffer, id -1 on empty
+    or tombstoned slots — and gate_cids (B, chunk), the probed cluster
+    of each slot or -2 past the probe budget.  The buffer is scored in
+    the kernel and each entry merges at its assigned cluster's slot.
     """
+    if gate_cids is not None:
+        gate_cids = gate_cids.to(torch.int32).reshape(-1).contiguous()
     tail = (-doc_ids.shape[0]) % blk_l
     if tail:
         doc_ids = torch.nn.functional.pad(doc_ids, (0, tail), value=-1)
@@ -53,10 +65,17 @@ def ivf_scan_merge(queries, docs, doc_ids, offsets, sizes, run_scores,
         _block_offsets(offsets, blk_l),
         sizes.to(torch.int32).reshape(-1).contiguous(),
         run_scores.contiguous(), run_ids.contiguous(), k=k,
-        list_pad=list_pad, chunk=chunk, blk_l=blk_l)
+        list_pad=list_pad, chunk=chunk, blk_l=blk_l, delta_vecs=delta_vecs,
+        delta_ids=delta_ids, delta_assign=delta_assign, gate_cids=gate_cids)
     # sentinel -> -inf so empty slots match the plain merge convention
     return torch.where(out_s > _sm.VALID_MIN, out_s, float("-inf")), \
         out_i, cnt
+
+
+def delta_scan(queries, vecs) -> torch.Tensor:
+    """Raw (B, cap) scores of the delta buffer; callers mask empty and
+    tombstoned slots by ``ids >= 0``."""
+    return _ds.delta_scan(queries.contiguous(), vecs.contiguous())
 
 
 def topk_merge(scores, ids, new_scores, new_ids,

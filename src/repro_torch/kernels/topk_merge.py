@@ -1,7 +1,8 @@
 """Top-k merge: the packed bitonic network over (running-k ++ new-L).
 
 Port of ``repro.kernels.topk_merge``.  On a CUDA tensor the wrapper
-launches ``csrc/topk_merge.cu``; on a CPU tensor it runs
+launches ``csrc/topk_merge.cu`` (past 48 KB of records by the kernel's
+shared-memory opt-in, up to the card's limit); on a CPU tensor it runs
 :func:`topk_merge_plain`.  Non-finite scores become the -1e30 sentinel
 before the sort, and sentinel scores come back as -inf, so empty slots
 match the plain per-probe merge exactly.
@@ -53,9 +54,8 @@ def topk_merge(scores: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"topk_merge: k={k} outside (0, {m_pad}]")
     if dev.type == "cpu":
         return topk_merge_plain(scores, ids, new_scores, new_ids, k)
-    if m_pad * 8 > 48 * 1024:
-        raise ValueError(f"topk_merge: {m_pad} records do not fit shared "
-                         f"memory")
+    _build.check_smem("topk_merge", dev, m_pad * 8,
+                      f"k0={k0} + L={n_new} columns ({m_pad} records)")
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b:

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import build_index, index_from_arrays, policies, \
     search
 from repro_torch.core.serving import WaveScheduler
+from repro_torch.index import DeltaBuffer, Tombstones, relayout
 from repro_torch.kernels import ivf_scan as t_scan
 from repro_torch.kernels import ivf_scan_merge as t_sm
 from repro_torch.kernels import topk_merge as t_tm
@@ -34,7 +35,8 @@ def test_port_source_imports_no_jax_or_reference(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.core.serving;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.core.serving,"
+            " repro_torch.index;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -69,6 +71,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card):
                     "--queries", "4"])
     with pytest.raises(RuntimeError, match="CUDA"):
         index_from_arrays(*arrays, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeltaBuffer(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Tombstones(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        relayout(arrays[1][:8], np.arange(8), np.zeros(8, np.int32),
+                 arrays[0], list_pad=64)
 
 
 def test_search_and_scheduler_refuse_another_device():

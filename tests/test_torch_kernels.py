@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import delta_scan as t_ds
 from repro_torch.kernels import ivf_scan as t_scan
 from repro_torch.kernels import ivf_scan_merge as t_sm
 from repro_torch.kernels import ops as tops
@@ -218,3 +219,160 @@ def test_gpu_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="different devices"):
         t_scan.ivf_scan(T(qs).to(cuda), T(docs), T(offs // 64).to(cuda),
                         list_pad=lp, blk_l=64)
+
+
+def _delta_fused_inputs(seed=5, b=6, chunk=4, lp=256, k=10, d=16, cap=300,
+                        integer=False):
+    """Fused inputs with a delta stream: doc and delta ids a random
+    permutation, tombstoned (-1) slots in both, several buffer entries
+    assigned to one probed cluster, empty buffer slots (assign -1) and
+    gates of -2 past the budget."""
+    rng = np.random.default_rng(seed)
+    n_lists = 16
+
+    def draw(shape):
+        if integer:
+            return rng.integers(-2, 3, shape).astype(np.float32)
+        return rng.normal(size=shape).astype(np.float32)
+
+    docs = draw(((n_lists + 1) * lp, d))
+    perm = rng.permutation(docs.shape[0] + cap).astype(np.int32)
+    ids = perm[: docs.shape[0]].copy()
+    ids[rng.random(ids.size) < 0.05] = -1
+    ids[n_lists * lp:] = -1
+    qs = draw((b, d))
+    cids = np.stack([rng.choice(n_lists, chunk, replace=False)
+                     for _ in range(b)]).astype(np.int32)
+    sizes = rng.integers(0, lp + 1, (b, chunk)).astype(np.int32)
+    sizes[:, 0] = lp
+    dvecs = draw((cap, d))
+    dids = perm[docs.shape[0]:].copy()
+    dassign = rng.integers(0, n_lists, cap).astype(np.int32)
+    dassign[: cap // 8] = cids[0, 1]          # a crowd in one probed list
+    dids[rng.random(cap) < 0.2] = -1          # tombstoned
+    dids[cap - cap // 10:], dassign[cap - cap // 10:] = -1, -1   # empty
+    gates = cids.copy()
+    gates[1, 2:] = -2                         # past the probe budget
+    rs = np.full((b, k), -np.inf, np.float32)
+    ri = np.full((b, k), -1, np.int32)
+    return (qs, docs, ids, cids * lp // 64, sizes, rs, ri, dvecs, dids,
+            dassign, gates, k, lp, chunk)
+
+
+def test_ivf_scan_merge_delta_plain_matches_pair():
+    """Plain fused-with-delta == the per-probe pair per slot: list rows
+    and gated buffer entries concatenated, one merge, counts from the
+    intersection."""
+    from repro_torch.core.ivf import intersection_pct
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _delta_fused_inputs()
+    q, dd, dv = T(qs), T(docs), T(dvecs)
+    s, i, c = t_sm.ivf_scan_merge(
+        q, dd, T(ids.reshape(-1, 64)), T(bo.reshape(-1)),
+        T(sizes.reshape(-1)), T(rs), T(ri), k=k, list_pad=lp, chunk=chunk,
+        delta_vecs=dv, delta_ids=T(dids), delta_assign=T(dassign),
+        gate_cids=T(gates.reshape(-1)))
+    d_sc = t_ds.delta_scan(q, dv)
+    run_s, run_i = T(rs), T(ri)
+    lane = torch.arange(lp)
+    for j in range(chunk):
+        rows = T(bo[:, j]).long()[:, None] * 64 + lane
+        li = T(ids)[rows]
+        alive = (lane < T(sizes[:, j])[:, None]) & (li >= 0)
+        ls = torch.where(alive, t_scan.ivf_scan_plain(
+            q, dd, T(bo[:, j]), list_pad=lp, blk_l=64), float("-inf"))
+        gate = (T(dassign)[None] == T(gates[:, j])[:, None]) \
+            & (T(dids)[None] >= 0)
+        ns = torch.cat([ls, torch.where(gate, d_sc, float("-inf"))], 1)
+        ni = torch.cat([torch.where(alive, li, -1),
+                        torch.where(gate, T(dids)[None], -1)], 1)
+        ws, wi = tops.topk_merge(run_s, run_i, ns, ni, k)
+        got_s = torch.where(s[:, j] > t_sm.VALID_MIN, s[:, j], float("-inf"))
+        assert torch.equal(i[:, j], wi), j
+        assert torch.equal(got_s, ws), j
+        phi = 100.0 * (k - c[:, j]).float() / k
+        torch.testing.assert_close(phi, intersection_pct(run_i, wi),
+                                   atol=1e-4, rtol=0)
+        run_s, run_i = ws, wi
+    assert (gates == -2).any() and (dids == -1).any()
+
+
+def test_ivf_scan_merge_delta_arguments_come_together():
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _delta_fused_inputs()
+    with pytest.raises(ValueError, match="together"):
+        t_sm.ivf_scan_merge(
+            T(qs), T(docs), T(ids.reshape(-1, 64)), T(bo.reshape(-1)),
+            T(sizes.reshape(-1)), T(rs), T(ri), k=k, list_pad=lp,
+            chunk=chunk, delta_vecs=T(dvecs), delta_ids=T(dids))
+
+
+# -- on the card: the live index's kernels -------------------------------------
+
+
+@pytest.mark.gpu
+def test_gpu_delta_scan_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    for b, cap, exact in ((37, 300, True), (128, 4096, True),
+                          (128, 4096, False)):
+        if exact:
+            q = rng.integers(-2, 3, (b, 768)).astype(np.float32)
+            v = rng.integers(-2, 3, (cap, 768)).astype(np.float32)
+        else:
+            q = rng.normal(size=(b, 768)).astype(np.float32)
+            v = rng.normal(size=(cap, 768)).astype(np.float32)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            v /= np.linalg.norm(v, axis=1, keepdims=True)
+        q, v = _to(cuda, q, v)
+        before = t_ds.delta_scan.launches
+        got = t_ds.delta_scan(q, v)
+        torch.cuda.synchronize()
+        assert t_ds.delta_scan.launches == before + 1
+        want = t_ds.delta_scan_plain(q, v)
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_ivf_scan_merge_delta_matches_plain(cuda):
+    """The delta stream at the main path's capacity (4,096 slots: past
+    48 KB of shared memory) on integer inputs: bit-equal, ties included."""
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _delta_fused_inputs(b=16, k=100, d=768, cap=4096,
+                                  integer=True)
+    args = _to(cuda, qs, docs, ids.reshape(-1, 64), bo.reshape(-1),
+               sizes.reshape(-1), rs, ri)
+    delta = dict(zip(("delta_vecs", "delta_ids", "delta_assign",
+                      "gate_cids"),
+                     _to(cuda, dvecs, dids, dassign, gates.reshape(-1))))
+    before = t_sm.ivf_scan_merge.delta_launches
+    got = t_sm.ivf_scan_merge(*args, k=k, list_pad=lp, chunk=chunk,
+                              **delta)
+    torch.cuda.synchronize()
+    assert t_sm.ivf_scan_merge.delta_launches == before + 1
+    want = t_sm.ivf_scan_merge_plain(*args, k=k, list_pad=lp, chunk=chunk,
+                                     blk_l=64, **delta)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_gpu_topk_merge_wide_matches_plain(cuda):
+    """k + list_pad + 4,096 columns (8,192 records, 64 KB of shared
+    memory): the live per-probe pair's merge."""
+    s, i, ns, ni, k = _merge_inputs(3, b=32, k=100, L=256 + 4096)
+    s, i, ns, ni = _to(cuda, s, i, ns, ni)
+    got = t_tm.topk_merge(s, i, ns, ni, k)
+    torch.cuda.synchronize()
+    want = t_tm.topk_merge_plain(s, i, ns, ni, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_gpu_wrappers_raise_past_the_shared_memory_limit(cuda):
+    s, i, ns, ni, k = _merge_inputs(4, b=4, k=100, L=40_000)
+    with pytest.raises(ValueError, match="the card allows"):
+        t_tm.topk_merge(*_to(cuda, s, i, ns, ni), k)
