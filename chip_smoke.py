@@ -13,6 +13,9 @@ a line of its own:
 2. each kernel against its plain version at main-path shapes, on
    integer-valued inputs (bit-equal, ties included) and on L2-normalised
    Gaussian inputs (scores within 1e-5, ids equal up to near-tie swaps);
+   ``flash_attention`` in f32 and bf16 (within 2e-5, and one bf16 ulp),
+   hd 64 and 128, S a tile multiple and not, causal or not;
+   ``embedding_bag`` bit for bit at D 1, 10, 16 and F 1, 39;
 3. the main path at the paper's widths (``configs/msmarco_ivf``:
    d=768, k=100, N=80, tau=10, patience Delta=7, Phi=95, list_pad=256)
    on a 1M-document synthetic corpus: build the index on the card,
@@ -28,9 +31,18 @@ a line of its own:
    with the delta stream; recall against the static serve; then the
    final live index against its rebuilt twin and the per-probe kernel
    pair (bit for bit) and against brute force over its net corpus;
-5. each kernel's time (CUDA events) beside its plain version, a library
-   yardstick the port never calls, and its bound; a profiled static and
-   live serve.
+5. the model zoo on seeded random weights at full width: StarCoder2-3B
+   (30 layers, d=3,072, GQA kv=2) prefills 4 x 2,048 Zipf tokens (30
+   ``flash_attention`` launches), decodes 16 steps, and both agree with
+   ``forward`` over all 2,064 tokens within the reference test's bounds;
+   DeepFM (39 x 1M rows, D=10) serves 8 ``serve_p99`` batches and one
+   ``serve_bulk`` batch (2 ``embedding_bag`` launches a call), each
+   against the same forward from ``emb.sum(1)``; profiled calls of both;
+6. each kernel's time (CUDA events) beside its plain version, a library
+   yardstick the port never calls, and its bound; ``flash_attention``
+   (the prefill's 96 x 2,048 x 128 bf16) and ``embedding_bag`` (the bulk
+   batch on the DeepFM table) are held against their plain versions
+   there too; a profiled static and live serve.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -66,6 +78,7 @@ SPREAD = 0.25 * math.sqrt(64 / 768)
 NOISE = 0.05 * math.sqrt(64 / 768)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 ATOL = 1e-5
 # ~20 ms at the H100's clock: longer than the host takes to enqueue any
 # timed call, the plain versions included
@@ -85,12 +98,387 @@ def phase(name: str):
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
+def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
+    """The least ms for the work: its bytes over the memory rate or its
+    operations over the peak rate, whichever is longer, and which."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flops / flops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+# -- the model zoo: StarCoder2-3B serving and DeepFM serving -----------------
+# These run inside main(); ``ctx``, built there once, carries the device,
+# the phase timer, the launch counters, the timing helper and the table of
+# each kernel's error, so the same functions can be rehearsed on the CPU
+# at reduced configs.
+
+LM_ARCH, LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = "starcoder2-3b", 4, 2048, 16
+RS_ARCH, RS_P99_BATCH, RS_P99_CALLS, RS_BULK_BATCH = \
+    "deepfm", 512, 8, 262_144
+# tests/test_models_lm.py:38-47's bounds on log-softmax differences
+PREFILL_TOL, DECODE_TOL = 0.15, 0.25
+# flash_attention against its plain version, (atol, rtol): f32 sums in
+# another order; in bf16 the same f32 sums rounded once to the output, so
+# at most one bf16 ulp apart (2^-7 of the value) plus f32 noise near 0
+FLASH_TOL = {"torch.float32": (2e-5, 2e-5),
+             "torch.bfloat16": (1e-5, 2.0 ** -7)}
+# serve_logits against the same forward from emb.sum(1): f32 sums in
+# another order (rtol), logits near 0 (atol)
+RS_RTOL, RS_ATOL = 1e-5, 1e-6
+
+
+def profile_run(sync, what, fn, top=10):
+    """Run ``fn`` once under the profiler: its host wall, the device's
+    busy and idle share of it, and the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1000
+    dev = {ev.key: (ev.device_time_total / 1e3, ev.count)
+           for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+    busy = sum(ms for ms, _ in dev.values())
+    print(f"profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}% of wall, idle "
+          f"{100 - 100 * busy / wall:.1f}%), "
+          f"{sum(n for _, n in dev.values())} device operations")
+    for name, (ms, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:9.3f} ms  x{cnt:<5d} {name[:90]}")
+
+
+def check_flash(got, want, dtype):
+    """Hold flash_attention's output against its plain version's; return
+    the max abs difference."""
+    import torch
+
+    if got.dtype != dtype:
+        raise AssertionError("flash_attention: output dtype")
+    atol, rtol = FLASH_TOL[str(dtype)]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    return float((got.float() - want.float()).abs().max())
+
+
+def model_zoo_kernels_vs_plain(ctx):
+    """flash_attention (causal and not, f32 and bf16, hd 64 and 128, S a
+    tile multiple and not) and embedding_bag (D 1, 10, 16; F 1, 39) on
+    the card against their plain versions, off the main path's shapes
+    (``model_zoo_timing`` holds both at those)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import embedding_bag as k_eb
+    from repro_torch.kernels import flash_attention as k_fa
+
+    rng = np.random.default_rng(11)
+    for s in (512, 2064):
+        for hd in (64, 128):
+            q, k, v = (torch.from_numpy(rng.normal(size=(8, s, hd)).astype(
+                np.float32)).to(ctx.dev) for _ in range(3))
+            for dtype in (torch.float32, torch.bfloat16):
+                qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+                for causal in (True, False):
+                    got = k_fa.flash_attention(qd, kd, vd, causal=causal)
+                    ctx.sync()
+                    want = k_fa.flash_attention_plain(qd, kd, vd,
+                                                      causal=causal)
+                    err = check_flash(got, want, dtype)
+                    print(f"flash_attention (S={s}, hd={hd}, {dtype}, "
+                          f"causal={causal}): max_abs_err {err} (atol, "
+                          f"rtol {FLASH_TOL[str(dtype)]})")
+    for d in (1, 10, 16):
+        table = torch.from_numpy(rng.normal(size=(100_000, d)).astype(
+            np.float32)).to(ctx.dev)
+        for f in (1, 39):
+            ids = torch.from_numpy(rng.integers(0, 100_000, (4096, f)).astype(
+                np.int32)).to(ctx.dev)
+            got = k_eb.embedding_bag(table, ids)
+            ctx.sync()
+            if not torch.equal(got, k_eb.embedding_bag_plain(table, ids)):
+                raise AssertionError(f"embedding_bag (D={d}, F={f}): not "
+                                     f"bit-equal")
+            print(f"embedding_bag (D={d}, F={f}): bit-equal")
+
+
+def lm_serve(ctx, cfg, *, prompts=LM_PROMPTS, prompt_len=LM_PROMPT_LEN,
+             n_decode=LM_DECODE, seed=0):
+    """StarCoder2-3B serving on seeded random weights: init, prefill of
+    ``prompts`` Zipf prompts, ``n_decode`` decode steps fed the stream's
+    next tokens, and both held against ``forward`` over the whole
+    sequence."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import tree_map
+
+    max_seq = prompt_len + n_decode
+    with ctx.phase("lm_init"):
+        params = transformer.init_params(cfg, seed=seed, device=ctx.dev)
+        ctx.sync()
+        leaves = []
+        tree_map(leaves.append, params)
+        n = sum(t.numel() for t in leaves)
+        print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv={cfg.n_kv_heads}, d_ff={cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}: {n} parameters "
+              f"({sum(t.numel() * t.element_size() for t in leaves)} bytes "
+              f"f32; config param_count {cfg.param_count()} + ln_f)")
+        if n != cfg.param_count() + cfg.d_model:
+            raise AssertionError("parameter count differs from the config's")
+    toks = token_stream(prompts * max_seq, cfg.vocab_size, seed=seed) \
+        .reshape(prompts, max_seq)
+    with ctx.phase("lm_prefill"):
+        # twice: the first call pays for the GEMM heuristics and the
+        # allocator's first blocks, the second is the steady state
+        walls = []
+        for _ in range(2):
+            ctx.reset()
+            ctx.reset_peak()
+            ctx.sync()
+            t0 = time.perf_counter()
+            logits, cache = transformer.prefill(
+                cfg, params, toks[:, :prompt_len], max_seq=max_seq)
+            ctx.sync()
+            walls.append((time.perf_counter() - t0) * 1000)
+        wall = walls[-1]
+        counts = ctx.read(f"lm prefill ({prompts} x {prompt_len})",
+                          ["flash_attention"], absent=["embedding_bag"])
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"prefill launched flash_attention "
+                                 f"{counts['flash_attention']} times, not "
+                                 f"{cfg.n_layers}")
+        if logits.shape != (prompts, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits are not finite or of the "
+                                 "expected shape")
+        peak = ctx.peak()
+        print(json.dumps(dict(prefill_wall_ms=wall,
+                              prefill_wall_ms_first_call=walls[0],
+                              prompt_tokens_per_s=prompts * prompt_len
+                              / (wall / 1000),
+                              peak_device_mem_bytes=peak,
+                              cache_bytes=sum(c.numel() * c.element_size()
+                                              for c in cache.data))))
+    ctx.reset()
+    with ctx.phase("lm_decode"):
+        step_ms, steps = [], []
+        for i in range(n_decode):
+            pos = prompt_len + i
+            ctx.sync()
+            t0 = time.perf_counter()
+            lg, cache = transformer.decode_step(cfg, params, cache,
+                                                toks[:, pos: pos + 1], pos)
+            ctx.sync()
+            step_ms.append((time.perf_counter() - t0) * 1000)
+            steps.append(lg)
+        ctx.read("lm decode", [], absent=["flash_attention", "embedding_bag"])
+        if not all(torch.isfinite(lg).all() for lg in steps):
+            raise AssertionError("decode logits are not finite")
+        print(json.dumps(dict(decode_steps=n_decode, batch=prompts,
+                              ms_per_step_median=float(np.median(step_ms)),
+                              ms_per_step=step_ms,
+                              decode_tokens_per_s=prompts * n_decode
+                              / (sum(step_ms) / 1000))))
+    ctx.reset()
+    with ctx.phase("lm_consistency"):
+        full, _ = transformer.forward(cfg, params, toks)
+        ctx.sync()
+        counts = ctx.read(f"lm forward ({prompts} x {max_seq})",
+                          ["flash_attention"])
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError("forward did not launch flash_attention "
+                                 "once per layer")
+
+        def lsm(x):
+            return torch.log_softmax(x.float(), -1)
+
+        pre_err = float((lsm(logits) - lsm(full[:, prompt_len - 1]))
+                        .abs().max())
+        dec_err = [float((lsm(lg) - lsm(full[:, prompt_len + i])).abs().max())
+                   for i, lg in enumerate(steps)]
+        print(f"log-softmax max |prefill - forward| {pre_err} (bound "
+              f"{PREFILL_TOL}); |decode - forward| per step {dec_err} "
+              f"(bound {DECODE_TOL})")
+        if pre_err >= PREFILL_TOL or max(dec_err) >= DECODE_TOL:
+            raise AssertionError("prefill/decode disagree with forward")
+    del full, steps
+    with ctx.phase("lm_profile"):
+        # the same prefill again, and the last decode step again (it
+        # rewrites the cache slot with the same values)
+        ctx.profile(f"prefill ({prompts} x {prompt_len})",
+                    lambda: transformer.prefill(cfg, params,
+                                                toks[:, :prompt_len],
+                                                max_seq=max_seq))
+        pos = max_seq - 1
+        ctx.profile("decode step", lambda: transformer.decode_step(
+            cfg, params, cache, toks[:, pos: pos + 1], pos))
+    del params, cache, logits
+
+
+def recsys_serve(ctx, cfg, *, p99_batch=RS_P99_BATCH, p99_calls=RS_P99_CALLS,
+                 bulk_batch=RS_BULK_BATCH, seed=0):
+    """DeepFM serving on seeded random weights: ``p99_calls`` batches of
+    ``serve_p99`` and one of ``serve_bulk`` from ``click_log``, each call
+    two embedding_bag launches; every batch's logits against the same
+    forward computed from ``emb.sum(1)``.  Returns the params and the
+    bulk batch's combined-table rows (the timing phase's inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import click_log
+    from repro_torch.models import recsys
+
+    with ctx.phase("recsys_init"):
+        params = recsys.init_params(cfg, seed=seed, device=ctx.dev)
+        ctx.sync()
+        n_bytes = 4 * (params["table"].numel()
+                       + params["linear_table"].numel())
+        print(f"{cfg.name}: {cfg.n_sparse} fields x {cfg.rows_per_field} "
+              f"rows, D={cfg.embed_dim}, MLP {cfg.mlp}: table "
+              f"{tuple(params['table'].shape)}, {n_bytes} bytes of tables")
+    batches = [("serve_p99", click_log(p99_batch, cfg.n_dense, cfg.n_sparse,
+                                       cfg.rows_per_field, seed=seed + i))
+               for i in range(p99_calls)]
+    batches.append(("serve_bulk", click_log(bulk_batch, cfg.n_dense,
+                                            cfg.n_sparse, cfg.rows_per_field,
+                                            seed=seed + 100)))
+
+    def from_sum(batch):
+        """DeepFM's forward with the bags summed as emb.sum(1)."""
+        ids = torch.as_tensor(batch["sparse"], device=ctx.dev)
+        emb = recsys.embedding_lookup(params["table"], ids, cfg)
+        lin = recsys.embedding_lookup(params["linear_table"], ids,
+                                      recsys.dataclass_like(cfg)).sum((1, 2))
+        sv = emb.sum(1)
+        fm = 0.5 * (sv * sv - (emb * emb).sum(1)).sum(1)
+        deep = recsys._mlp_apply(params["mlp"],
+                                 emb.reshape(emb.shape[0], -1))[:, 0]
+        return lin + fm + deep
+
+    with ctx.phase("recsys_serve"):
+        ms = {"serve_p99": [], "serve_bulk": []}
+        for i, (shape, batch) in enumerate(batches):
+            ctx.reset()
+            ctx.sync()
+            t0 = time.perf_counter()
+            out = recsys.serve_logits(cfg, params, batch)
+            ctx.sync()
+            ms[shape].append((time.perf_counter() - t0) * 1000)
+            counts = ctx.read(f"recsys {shape} (batch {len(out)})",
+                              ["embedding_bag"], absent=["flash_attention"])
+            if counts["embedding_bag"] != 2:
+                raise AssertionError(f"serve_logits launched embedding_bag "
+                                     f"{counts['embedding_bag']} times")
+            if out.shape != (batch["sparse"].shape[0],) or \
+                    not torch.isfinite(out).all():
+                raise AssertionError("serve logits are not finite or of the "
+                                     "expected shape")
+            torch.testing.assert_close(out, from_sum(batch), rtol=RS_RTOL,
+                                       atol=RS_ATOL)
+        print(json.dumps(dict(
+            serve_p99_ms=ms["serve_p99"],
+            serve_p99_ms_median=float(np.median(ms["serve_p99"])),
+            serve_bulk_ms=ms["serve_bulk"][0],
+            serve_bulk_examples_per_s=bulk_batch
+            / (ms["serve_bulk"][0] / 1000))))
+        print(f"serve_logits == forward from emb.sum(1) on every batch "
+              f"(rtol {RS_RTOL}, atol {RS_ATOL}); host-to-device copy of "
+              f"each batch included in its ms")
+    with ctx.phase("recsys_profile"):
+        for shape, batch in (batches[-2], batches[-1]):
+            ctx.profile(f"{shape} call (batch {batch['sparse'].shape[0]})",
+                        lambda: recsys.serve_logits(cfg, params, batch))
+    ids = torch.as_tensor(batches[-1][1]["sparse"], device=ctx.dev)
+    return params, recsys._combined_ids(ids, cfg).contiguous()
+
+
+def model_zoo_timing(ctx, lm_cfg, table, rows):
+    """Timing rows of flash_attention (the prefill's shapes, random bf16)
+    and embedding_bag (the bulk batch on the DeepFM table), each first
+    held against its plain version on those inputs: its row's
+    ``max_abs_err``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as k_eb
+    from repro_torch.kernels import flash_attention as k_fa
+
+    heads, hd = lm_cfg.n_heads, lm_cfg.head_dim()
+    bh, s = LM_PROMPTS * heads, LM_PROMPT_LEN
+    g = torch.Generator(device=ctx.dev).manual_seed(5)
+    q, k, v = (torch.randn((bh, s, hd), generator=g, device=ctx.dev)
+               .to(torch.bfloat16) for _ in range(3))
+    flops = 4 * bh * hd * s * (s + 1) / 2
+    n_bytes = 4 * bh * s * hd * 2
+    print(f"flash_attention: {flops:.6e} causal FLOP, {n_bytes} bytes; "
+          f"at the f32 CUDA-core peak {flops / F32_FLOPS_PER_S * 1e3:.6f}"
+          f" ms")
+
+    got = k_fa.flash_attention(q, k, v, causal=True)
+    ctx.sync()
+    err = check_flash(got, k_fa.flash_attention_plain(q, k, v, causal=True),
+                      torch.bfloat16)
+    ctx.max_err["flash_attention"] = err
+    print(f"flash_attention at the prefill's shapes (BH={bh}, S={s}, "
+          f"hd={hd}, bf16, causal): max_abs_err {err} (atol, rtol "
+          f"{FLASH_TOL['torch.bfloat16']})")
+    del got
+
+    def sdpa():
+        shp = (LM_PROMPTS, heads, s, hd)
+        return F.scaled_dot_product_attention(
+            q.view(shp), k.view(shp), v.view(shp), is_causal=True)
+
+    rows_out = [dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:65",
+        ms=ctx.time_call("flash_attention", lambda: k_fa.flash_attention(
+            q, k, v, causal=True), 10),
+        plain_ms=ctx.time_call("flash_attention plain",
+                               lambda: k_fa.flash_attention_plain(
+                                   q, k, v, causal=True), 5),
+        bound=bound(n_bytes, flops, BF16_FLOPS_PER_S),
+        library_ms=ctx.time_call("scaled_dot_product_attention", sdpa, 20))]
+    b, f = rows.shape
+    d = table.shape[1]
+    distinct = int(torch.unique(rows).numel())
+    n_bytes = b * f * 4 + b * d * 4 + distinct * d * 4
+    print(f"embedding_bag: {b} bags x {f} ids, D={d}: {distinct} distinct "
+          f"rows of {table.shape[0]}; {n_bytes} bytes")
+    got = k_eb.embedding_bag(table, rows)
+    ctx.sync()
+    if not torch.equal(got, k_eb.embedding_bag_plain(table, rows)):
+        raise AssertionError("embedding_bag at the bulk batch's shapes: not "
+                             "bit-equal to its plain version")
+    ctx.max_err["embedding_bag"] = 0.0
+    print("embedding_bag at the bulk batch's shapes: bit-equal")
+    rows_out.append(dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:28",
+        ms=ctx.time_call("embedding_bag", lambda: k_eb.embedding_bag(
+            table, rows), 20),
+        plain_ms=ctx.time_call("embedding_bag plain",
+                               lambda: k_eb.embedding_bag_plain(table, rows),
+                               5),
+        bound=bound(n_bytes, b * f * d, F32_FLOPS_PER_S),
+        library_ms=ctx.time_call("F.embedding_bag(mode='sum')",
+                                 lambda: F.embedding_bag(rows, table,
+                                                         mode="sum"), 20)))
+    return rows_out
 
 
 def main() -> None:
@@ -105,6 +493,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
 
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_arch
     from repro_torch.core import (brute_force, build_index, metrics,
                                   policies, search)
     from repro_torch.core.serving import WaveScheduler
@@ -113,6 +504,8 @@ def main() -> None:
                                    assign_clusters, version_of)
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_scan as k_ds
+    from repro_torch.kernels import embedding_bag as k_eb
+    from repro_torch.kernels import flash_attention as k_fa
     from repro_torch.kernels import ivf_scan as k_scan
     from repro_torch.kernels import ivf_scan_merge as k_sm
     from repro_torch.kernels import topk_merge as k_tm
@@ -126,10 +519,86 @@ def main() -> None:
                 "ivf_scan_merge": (k_sm.ivf_scan_merge, "launches"),
                 "delta_scan": (k_ds.delta_scan, "launches"),
                 "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
-                                         "delta_launches")}
+                                         "delta_launches"),
+                "flash_attention": (k_fa.flash_attention, "launches"),
+                "embedding_bag": (k_eb.embedding_bag, "launches")}
 
     def sync():
         torch.cuda.synchronize(dev)
+
+    # each kernel's max |kernel - plain| at its main-path shapes
+    max_err = {name: 0.0 for name in counters}
+    # each path's launches: counters set to 0 just before its run and
+    # read just after it
+    launches = {}
+
+    def reset_launches():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_launches(path, names, absent=()):
+        """Launches since the last reset: each of ``names`` must have run,
+        none of ``absent``.  A kernel's first path is its JSON row's."""
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        print(f"launches on path {path}: {json.dumps(counts)}")
+        for name in names:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched on {path}")
+            launches.setdefault(name, counts[name])
+        for name in absent:
+            if counts[name]:
+                raise AssertionError(f"{name} ran on {path}")
+        return counts
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_ms(prof):
+        """Device time (ms) and count of each kernel or copy profiled."""
+        return {ev.key: (ev.device_time_total / 1e3, ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA}
+
+    def time_call(name, fn, reps):
+        """Median CUDA-event ms of one call, over ``reps`` calls after a
+        warm-up.  Each call is queued behind a device-side sleep longer
+        than the host takes to enqueue it, so the card never waits on
+        the host between a call's two events.  The profiler's (CUPTI)
+        device time of the same calls is printed beside it."""
+        for _ in range(3):
+            fn()
+        sync()
+        events = []
+        for _ in range(reps):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        sync()
+        med = float(np.median([a.elapsed_time(b) for a, b in events]))
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        dev = sum(ms for ms, _ in device_ms(prof).values()) / reps
+        if dev <= 0:
+            raise AssertionError(f"{name}: the profiler saw no device time")
+        print(f"  {name}: {med:.6f} ms median by events over {reps} calls, "
+              f"{dev:.6f} ms device per call by the profiler")
+        return med
+
+    # what the model-zoo phases need of this run (see lm_serve)
+    ctx = SimpleNamespace(
+        dev=dev, sync=sync, phase=phase, max_err=max_err,
+        reset=reset_launches, read=read_launches, time_call=time_call,
+        reset_peak=lambda: torch.cuda.reset_peak_memory_stats(dev),
+        peak=lambda: torch.cuda.max_memory_allocated(dev),
+        profile=lambda what, fn: profile_run(sync, what, fn))
 
     # -- 1. device and build -------------------------------------------------
     with phase("device"):
@@ -144,7 +613,6 @@ def main() -> None:
 
     # -- 2. each kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
-    max_err = {name: 0.0 for name in counters}
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -307,6 +775,7 @@ def main() -> None:
             check_fused(g, w, integer, f"ivf_scan_merge+delta ({label})",
                         "ivf_scan_merge+delta")
         del q, docs, ids2d, got, want, g, w, dargs
+        model_zoo_kernels_vs_plain(ctx)
 
     # -- 3. the main path at the paper's widths -------------------------------
     with phase("corpus"):
@@ -340,29 +809,6 @@ def main() -> None:
     pol = policies.patience(N_PROBE, delta=DELTA, phi=PHI, k=K, tau=TAU)
     ws = WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K, n_probe=N_PROBE,
                        delta=DELTA, phi=PHI)
-    # each path's launches: counters set to 0 just before its run and
-    # read just after it
-    launches = {}
-
-    def reset_launches():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read_launches(path, names, absent=()):
-        """Launches since the last reset: each of ``names`` must have run,
-        none of ``absent``.  A kernel's first path is its JSON row's."""
-        counts = {name: getattr(fn, attr)
-                  for name, (fn, attr) in counters.items()}
-        print(f"launches on path {path}: {json.dumps(counts)}")
-        for name in names:
-            if counts[name] <= 0:
-                raise AssertionError(f"{name} was not launched on {path}")
-            launches.setdefault(name, counts[name])
-        for name in absent:
-            if counts[name]:
-                raise AssertionError(f"{name} ran on {path}")
-        return counts
-
     reset_launches()
     with phase("serve"):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -555,54 +1001,11 @@ def main() -> None:
               f"near-tie id swaps {swaps})")
         del vecs_n, bs, brows, bids
 
-    # -- 4. timing ------------------------------------------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # -- 5. the model zoo: StarCoder2-3B and DeepFM serving -----------------
+    lm_serve(ctx, get_arch(LM_ARCH).model)
+    rs_params, rs_rows = recsys_serve(ctx, get_arch(RS_ARCH).model)
 
-    def device_ms(prof):
-        """Device time (ms) and count of each kernel or copy profiled."""
-        return {ev.key: (ev.device_time_total / 1e3, ev.count)
-                for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA}
-
-    def time_call(name, fn, reps):
-        """Median CUDA-event ms of one call, over ``reps`` calls after a
-        warm-up.  Each call is queued behind a device-side sleep longer
-        than the host takes to enqueue it, so the card never waits on
-        the host between a call's two events.  The profiler's (CUPTI)
-        device time of the same calls is printed beside it."""
-        for _ in range(3):
-            fn()
-        sync()
-        events = []
-        for _ in range(reps):
-            torch.cuda._sleep(SLEEP_CYCLES)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            events.append((a, b))
-        sync()
-        med = float(np.median([a.elapsed_time(b) for a, b in events]))
-        with profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
-        dev = sum(ms for ms, _ in device_ms(prof).values()) / reps
-        if dev <= 0:
-            raise AssertionError(f"{name}: the profiler saw no device time")
-        print(f"  {name}: {med:.6f} ms median by events over {reps} calls, "
-              f"{dev:.6f} ms device per call by the profiler")
-        return med
-
-    def bound(n_bytes, n_flops):
-        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        by_ops = n_flops / F32_FLOPS_PER_S * 1e3
-        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                               "operations")
-
+    # -- 6. timing ------------------------------------------------------------
     rows = []
     with phase("timing"):
         # main-path inputs: the first wave's queries, their first CHUNK
@@ -747,6 +1150,8 @@ def main() -> None:
               f"ivf_scan_merge+delta gates {gated} buffer entries over "
               f"{B * CHUNK} slots; without the stream on the same tiles "
               f"{rows[2]['ms']:.6f} ms")
+        rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
+                                 rs_params["table"], rs_rows)
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the early-exit A-kNN system (``repro``).
 
 The JAX package ``repro`` is the reference; this package mirrors its
-layout (``core/``, ``kernels/``, ``data/``, ``launch/``) and runs on an
-NVIDIA Hopper card through hand-written CUDA kernels
-(``csrc/*.cu``, built by ``kernels/_build.py`` at first use).
+layout (``core/``, ``index/``, ``kernels/``, ``data/``, ``launch/``,
+``configs/``, ``models/``) and runs on an NVIDIA Hopper card through
+hand-written CUDA kernels (``csrc/*.cu``, built by ``kernels/_build.py``
+at first use).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of quietly running on the CPU.

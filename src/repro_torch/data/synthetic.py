@@ -10,12 +10,14 @@ queries whose 1-NN sits in the first probed cluster) and *hard*
 "encoder" knob ``spread`` emulates harder encoders (Contriever/TAS-B
 need larger N in the paper).
 
-The LM / recsys / graph generators of the reference module belong to
-the model-zoo slice of the port.
+``token_stream`` and ``click_log`` are the reference's LM and recsys
+generators, copied as they are (same seed, same arrays).  The graph
+generator waits for the GNN models.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 
@@ -75,3 +77,30 @@ def relevant_docs(queries: np.ndarray, docs: np.ndarray,
         e = min(s + block, queries.shape[0])
         relevant[s:e] = np.argmax(queries[s:e] @ docs.T, 1)
     return relevant
+
+
+# ---------------------------------------------------------------------------
+# LM / recsys generators
+# ---------------------------------------------------------------------------
+
+
+def token_stream(n_tokens: int, vocab: int, seed: int = 0,
+                 zipf_s: float = 1.2) -> np.ndarray:
+    """Zipf-distributed token ids (realistic embedding-gather skew)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_s, n_tokens)
+    return np.minimum(ranks - 1, vocab - 1).astype(np.int32)
+
+
+def click_log(batch: int, n_dense: int, n_sparse: int, rows_per_field: int,
+              seed: int = 0) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    dense = rng.normal(0, 1, (batch, max(n_dense, 1))).astype(np.float32)
+    ranks = rng.zipf(1.2, (batch, n_sparse))
+    sparse = np.minimum(ranks - 1, rows_per_field - 1).astype(np.int32)
+    # click prob depends on a random linear model over fields (learnable)
+    logits = 0.1 * dense.sum(1) + 0.01 * (sparse % 17).sum(1) - 1.0
+    y = (rng.random(batch) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    if n_dense == 0:
+        dense = np.zeros((batch, 0), np.float32)
+    return {"dense": dense, "sparse": sparse, "label": y}

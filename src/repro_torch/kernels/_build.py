@@ -34,6 +34,9 @@ _SIGNATURES = {
     "topk_merge": [_P] * 6 + [_I] * 5 + [_P],
     "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
     "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
+    "flash_attention_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "embedding_bag": [_P] * 3 + [_I] * 3 + [_P],
 }
 # C entry points that launch nothing (no stream, an int result)
 _QUERIES = {"max_shared_optin": [_I]}

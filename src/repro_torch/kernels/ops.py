@@ -4,7 +4,9 @@ Each wrapper runs the CUDA kernel on CUDA tensors and the kernel's
 plain PyTorch version on CPU tensors (see the kernel modules).  What
 the reference's ``ops`` layer does around its kernels happens here:
 the -inf masking of ``ivf_scan``, the -1 padding of ``ids2d``, offsets
-in ``blk_l`` units, and the sentinel -> -inf map of ``ivf_scan_merge``.
+in ``blk_l`` units, the sentinel -> -inf map of ``ivf_scan_merge``, and
+contiguous inputs and int32 ids for ``flash_attention`` and
+``embedding_bag``.
 The delta buffer needs no padding here: the CUDA kernels take any
 capacity, where the Pallas kernel wanted ``blk_dl`` multiples.
 """
@@ -15,9 +17,17 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import delta_scan as _ds
+from repro_torch.kernels import embedding_bag as _eb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_scan as _scan
 from repro_torch.kernels import ivf_scan_merge as _sm
 from repro_torch.kernels import topk_merge as _tm
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q, k, v (BH, S, hd) -> (BH, S, hd) in q's dtype; any S."""
+    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal)
 
 
 def _block_offsets(offsets: torch.Tensor, blk_l: int) -> torch.Tensor:
@@ -82,3 +92,10 @@ def topk_merge(scores, ids, new_scores, new_ids,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return _tm.topk_merge(scores.contiguous(), ids.contiguous(),
                           new_scores.contiguous(), new_ids.contiguous(), k)
+
+
+def embedding_bag(table, ids) -> torch.Tensor:
+    """table (R, D) f32; ids (B, F) -> (B, D) sum-combined bags (int64
+    ids are converted to int32)."""
+    return _eb.embedding_bag(table.contiguous(),
+                             ids.to(torch.int32).contiguous())

@@ -18,6 +18,8 @@ from repro_torch.kernels import ivf_scan as t_scan
 from repro_torch.kernels import ivf_scan_merge as t_sm
 from repro_torch.kernels import topk_merge as t_tm
 from repro_torch.launch import serve
+from repro_torch.configs import get_arch, reduced
+from repro_torch.models import attention, recsys, transformer
 
 ROOT = Path(__file__).resolve().parent.parent
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
@@ -36,7 +38,8 @@ def test_port_source_imports_no_jax_or_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core.serving,"
-            " repro_torch.index;"
+            " repro_torch.index, repro_torch.models.transformer,"
+            " repro_torch.models.recsys, repro_torch.configs;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -78,6 +81,46 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         relayout(arrays[1][:8], np.arange(8), np.zeros(8, np.int32),
                  arrays[0], list_pad=64)
+
+
+def _numpy_tree(tree):
+    """The port's params as the reference's numpy tree: a list of layers
+    becomes one (L, ...) stack per leaf."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return {k: np.stack([_numpy_tree(lp)[k] for lp in tree])
+                if not isinstance(tree[0][k], dict) else
+                _numpy_tree([lp[k] for lp in tree]) for k in tree[0]}
+    return tree.numpy()
+
+
+@pytest.mark.parametrize("arch,family", [("starcoder2-3b", transformer),
+                                         ("deepfm", recsys)])
+def test_model_entry_points_need_a_card_or_an_explicit_cpu(no_card, arch,
+                                                           family):
+    cfg = reduced(get_arch(arch)).model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        family.init_params(cfg, seed=0, device="cuda")
+    tree = _numpy_tree(family.init_params(cfg, seed=0, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        family.params_from_numpy(cfg, tree)
+    back = family.params_from_numpy(cfg, tree, device="cpu")
+    leaf = back["embed"] if family is transformer else back["table"]
+    assert leaf.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [attention.init_kv_cache,
+                                  transformer.init_cache])
+def test_kv_caches_need_a_card_or_an_explicit_cpu(no_card, make):
+    cfg = reduced(get_arch("starcoder2-3b")).model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(cfg, 2, 8)
+    cache = make(cfg, 2, 8, device="cpu")
+    k = cache.k if make is attention.init_kv_cache else cache.data[0]
+    assert k.device.type == "cpu" and k.dtype == torch.bfloat16
 
 
 def test_search_and_scheduler_refuse_another_device():

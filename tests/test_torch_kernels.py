@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import delta_scan as t_ds
+from repro_torch.kernels import embedding_bag as t_eb
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ivf_scan as t_scan
 from repro_torch.kernels import ivf_scan_merge as t_sm
 from repro_torch.kernels import ops as tops
@@ -376,3 +378,130 @@ def test_gpu_wrappers_raise_past_the_shared_memory_limit(cuda):
     s, i, ns, ni, k = _merge_inputs(4, b=4, k=100, L=40_000)
     with pytest.raises(ValueError, match="the card allows"):
         t_tm.topk_merge(*_to(cuda, s, i, ns, ni), k)
+
+
+# -- the model zoo's kernels: flash_attention and embedding_bag ---------------
+
+
+def _qkv(seed, bh, s, hd):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(bh, s, hd)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _cast(ref, xs, bf16):
+    """The same values on both sides: f32 numpy, rounded to bf16 (to
+    nearest even) by each framework when ``bf16``."""
+    jnp = ref.jnp
+    jx = [jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32) for x in xs]
+    tx = [T(x).to(torch.bfloat16) if bf16 else T(x) for x in xs]
+    return jx, tx
+
+
+# the sweep of tests/test_kernels.py::test_flash_attention_sweep; the
+# tolerances are its own: f32 sums in another order (2e-5), and in bf16
+# one rounding of the output (2e-2)
+@pytest.mark.parametrize("s,hd,blk", [(128, 64, 64), (256, 64, 128),
+                                      (256, 128, 64), (512, 32, 128)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_flash_attention_plain_matches_reference(ref, s, hd, blk, bf16):
+    (jq, jk, jv), (tq, tk, tv) = _cast(ref, _qkv(s + hd, 2, s, hd), bf16)
+    tol = 2e-2 if bf16 else 2e-5
+    got = tops.flash_attention(tq, tk, tv).float().numpy()
+    assert tops.flash_attention(tq, tk, tv).dtype == tq.dtype
+    for want in (ref.ops.flash_attention(jq, jk, jv, blk_q=blk, blk_k=blk),
+                 ref.oracles.flash_attention_ref(jq, jk, jv)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+def test_flash_attention_plain_non_causal_matches_reference(ref):
+    (jq, jk, jv), (tq, tk, tv) = _cast(ref, _qkv(1, 2, 128, 32), False)
+    got = tops.flash_attention(tq, tk, tv, causal=False).numpy()
+    for want in (ref.ops.flash_attention(jq, jk, jv, causal=False, blk_q=64,
+                                         blk_k=64),
+                 ref.oracles.flash_attention_ref(jq, jk, jv, causal=False)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [33, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_ragged_s_matches_ref_oracle(ref, s, causal):
+    """Any S (the Pallas kernel asserts S % blk == 0, so only the oracle
+    takes these)."""
+    (jq, jk, jv), (tq, tk, tv) = _cast(ref, _qkv(s, 3, s, 64), False)
+    got = tops.flash_attention(tq, tk, tv, causal=causal).numpy()
+    want = ref.oracles.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_wrapper_checks_inputs():
+    q, k, v = (T(x) for x in _qkv(0, 2, 16, 64))
+    with pytest.raises(ValueError, match="k must be torch.float32"):
+        t_fa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t_fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="shape"):
+        t_fa.flash_attention(q, k[:, :8].contiguous(), v)
+
+
+# the sweep of tests/test_kernels.py::test_embedding_bag_sweep, plus
+# DeepFM's widths (F=39, D=10 and the D=1 linear table)
+@pytest.mark.parametrize("r,d,b,f", [(50, 8, 4, 3), (200, 16, 8, 5),
+                                     (1000, 32, 2, 10), (200, 10, 8, 39),
+                                     (200, 1, 8, 39)])
+def test_embedding_bag_plain_bit_equal_to_pallas(ref, r, d, b, f):
+    """Both add a bag's rows in f32 in the order f = 0..F-1: bit-equal."""
+    rng = np.random.default_rng(2)
+    table = rng.normal(0, 1, (r, d)).astype(np.float32)
+    ids = rng.integers(0, r, (b, f)).astype(np.int32)
+    want = ref.ops.embedding_bag(ref.jnp.asarray(table),
+                                 ref.jnp.asarray(ids))
+    got = tops.embedding_bag(T(table), T(ids).long())
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- on the card: the model zoo's kernels -------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [128, 200])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gpu_flash_attention_matches_plain(cuda, s, hd, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    q, k, v = (x.to(dtype) for x in _to(cuda, *_qkv(s + hd, 6, s, hd)))
+    for causal in (True, False):
+        before = t_fa.flash_attention.launches
+        got = t_fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert t_fa.flash_attention.launches == before + 1
+        want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_refuses_other_head_dims(cuda):
+    q, k, v = _to(cuda, *_qkv(0, 2, 64, 32))
+    with pytest.raises(ValueError, match="hd in"):
+        t_fa.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 10, 16])
+@pytest.mark.parametrize("f", [1, 39])
+def test_gpu_embedding_bag_matches_plain(cuda, d, f):
+    rng = np.random.default_rng(d * 100 + f)
+    table = rng.normal(size=(5000, d)).astype(np.float32)
+    ids = rng.integers(0, 5000, (777, f)).astype(np.int32)
+    table, ids = _to(cuda, table, ids)
+    before = t_eb.embedding_bag.launches
+    got = t_eb.embedding_bag(table, ids)
+    torch.cuda.synchronize()
+    assert t_eb.embedding_bag.launches == before + 1
+    assert torch.equal(got, t_eb.embedding_bag_plain(table, ids))
