@@ -1,11 +1,12 @@
 // The one dot product of the IVF kernels: a query (staged in shared
 // memory) against one document row, by one warp.
 //
-// ivf_scan.cu, ivf_scan_merge.cu and delta_scan.cu all score through
-// this routine, so a document's score is the same bits on the per-probe
-// pair, on the fused path, in the delta buffer and after merge_delta
-// moved it into a list ("fused == per-probe pair" and "live overlay ==
-// rebuilt index" hold on the card).  Lane l accumulates elements l,
+// ivf_scan.cu and ivf_scan_merge.cu score through this routine, and
+// delta_scan.cu's register tile keeps its order (the same lane-strided
+// FMAs, the same butterfly), so a document's score is the same bits on
+// the per-probe pair, on the fused path, in the delta buffer and after
+// merge_delta moved it into a list ("fused == per-probe pair" and "live
+// overlay == rebuilt index" hold on the card).  Lane l accumulates elements l,
 // l+32, ... with f32 FMA (no TF32), then an XOR butterfly sums the 32
 // partials; every lane ends with the same value.  Neighbouring lanes
 // read neighbouring floats: each step of the warp is one coalesced
@@ -20,28 +21,4 @@ __device__ __forceinline__ float row_dot(const float* __restrict__ q_s,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   return acc;
-}
-
-// row_dot of one row against NQ queries staged one after another in
-// shared memory (query i at q_s + i * d): the row is read once, and each
-// query's sum keeps row_dot's exact order (the same lane-strided FMAs,
-// the same butterfly), so acc[i] is row_dot(q_s + i * d, row, d, lane)
-// bit for bit.
-template <int NQ>
-__device__ __forceinline__ void row_dot_multi(const float* __restrict__ q_s,
-                                              const float* __restrict__ row,
-                                              int d, int lane, float* acc) {
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) acc[i] = 0.0f;
-  for (int c = lane; c < d; c += 32) {
-    const float x = __ldg(row + c);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) acc[i] = fmaf(q_s[i * d + c], x, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-  }
 }

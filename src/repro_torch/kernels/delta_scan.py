@@ -13,7 +13,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import score_rows
 
-_KQ = 8   # queries a CTA stages (csrc/delta_scan.cu kQ)
+# shared memory of a CTA (csrc/delta_scan.cu kSmemBytes): five stages
+# of 32 query and 32 slot rows x 128 floats, whatever d
+_SMEM = 5 * 64 * 128 * 4
 
 
 def delta_scan_plain(queries: torch.Tensor,
@@ -33,7 +35,7 @@ def delta_scan(queries: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
         vecs=(vecs, torch.float32, (cap, d)))
     if dev.type == "cpu":
         return delta_scan_plain(queries, vecs)
-    _build.check_smem("delta_scan", dev, _KQ * d * 4, f"d={d}")
+    _build.check_smem("delta_scan", dev, _SMEM, "32 queries x 32 slots in 5 stages")
     out = torch.empty((b, cap), dtype=torch.float32, device=dev)
     if b and cap:
         _build.launch("delta_scan", dev, queries.data_ptr(), vecs.data_ptr(),

@@ -315,14 +315,15 @@ def test_ivf_scan_merge_delta_arguments_come_together():
 @pytest.mark.gpu
 def test_gpu_delta_scan_matches_plain(cuda):
     rng = np.random.default_rng(2)
-    for b, cap, exact in ((37, 300, True), (128, 4096, True),
-                          (128, 4096, False)):
+    # d = 30: rows not 16-byte aligned (4-byte staging), a ragged chunk
+    for b, cap, d, exact in ((37, 300, 768, True), (128, 4096, 768, True),
+                             (9, 50, 30, True), (128, 4096, 768, False)):
         if exact:
-            q = rng.integers(-2, 3, (b, 768)).astype(np.float32)
-            v = rng.integers(-2, 3, (cap, 768)).astype(np.float32)
+            q = rng.integers(-2, 3, (b, d)).astype(np.float32)
+            v = rng.integers(-2, 3, (cap, d)).astype(np.float32)
         else:
-            q = rng.normal(size=(b, 768)).astype(np.float32)
-            v = rng.normal(size=(cap, 768)).astype(np.float32)
+            q = rng.normal(size=(b, d)).astype(np.float32)
+            v = rng.normal(size=(cap, d)).astype(np.float32)
             q /= np.linalg.norm(q, axis=1, keepdims=True)
             v /= np.linalg.norm(v, axis=1, keepdims=True)
         q, v = _to(cuda, q, v)
@@ -335,6 +336,29 @@ def test_gpu_delta_scan_matches_plain(cuda):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,cap", [(37, 300), (128, 4096)])
+def test_gpu_delta_scan_equals_ivf_scan_rows(cuda, b, cap):
+    """delta_scan's register tile keeps row_dot's order: every score is
+    ivf_scan's for the same row, the buffer laid out as lists of 256 rows
+    that every query probes (one ivf_scan launch per list)."""
+    rng = np.random.default_rng(b + cap)
+    q = rng.normal(size=(b, 768)).astype(np.float32)
+    v = rng.normal(size=(cap, 768)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    n_lists = -(-cap // 256)
+    docs = np.zeros((n_lists * 256, 768), np.float32)
+    docs[:cap] = v
+    q, v, docs = _to(cuda, q, v, docs)
+    got = t_ds.delta_scan(q, v)
+    want = torch.cat([t_scan.ivf_scan(
+        q, docs, torch.full((b,), 4 * i, dtype=torch.int32, device=cuda),
+        list_pad=256, blk_l=64) for i in range(n_lists)], 1)[:, :cap]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -446,6 +470,70 @@ def test_flash_attention_wrapper_checks_inputs():
         t_fa.flash_attention(q, k[:, :8].contiguous(), v)
 
 
+def _flash_bf16_emulation(q, k, v, causal, fault=None):
+    """csrc/flash_attention.cu's bf16 arithmetic in plain torch: 128-key
+    tiles, the online softmax in the exp2 domain (scale f32(1/sqrt(hd))
+    times log2(e)), l summed from the f32 P, P rounded to bf16 before
+    P V, f32 accumulation, one bf16 rounding of acc / max(l, 1e-30).
+    ``fault`` plants one error: "mask_off_by_one" lets each row see one
+    key past the diagonal, "l_one_tile_short" leaves the last tile out of
+    l."""
+    bh, s, hd = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32) \
+        * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((bh, s, 1), t_fa.NEG_INF)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, hd))
+    n_kv = -(-s // 128)
+    for j in range(n_kv):
+        keys = torch.arange(j * 128, min(s, j * 128 + 128))[None, :]
+        x = torch.einsum("bqh,bkh->bqk", qf, kf[:, keys[0]]) * scale
+        reach = keys - (1 if fault == "mask_off_by_one" else 0)
+        if causal:
+            x = torch.where(reach > rows, t_fa.NEG_INF, x)
+        m_new = torch.maximum(m, x.max(-1, keepdim=True).values)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha
+        if not (fault == "l_one_tile_short" and j == n_kv - 1):
+            l = l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bqk,bkh->bqh", p.to(torch.bfloat16).float(), vf[:, keys[0]])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+def _bf16_qkv(seed, s, hd, bh=3):
+    return [T(x).to(torch.bfloat16) for x in _qkv(seed, bh, s, hd)]
+
+
+@pytest.mark.parametrize("s", [33, 200, 256])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_emulation_within_bound(s, hd, causal):
+    """The bf16 kernel's arithmetic stays within ``bf16_bound`` of the
+    plain version (which the Pallas kernel is held to above)."""
+    q, k, v = _bf16_qkv(s * hd, s, hd)
+    want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+    got = _flash_bf16_emulation(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    assert (err <= t_fa.bf16_bound(q, k, v, want, causal=causal)).all()
+    assert err.max() > 0      # P in bf16 does move the output
+
+
+@pytest.mark.parametrize("fault", ["mask_off_by_one", "l_one_tile_short"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bf16_bound_catches_a_planted_fault(fault, hd):
+    """The bound has teeth: one planted error in the emulation breaks it."""
+    q, k, v = _bf16_qkv(hd, 200, hd)
+    want = t_fa.flash_attention_plain(q, k, v, causal=True)
+    got = _flash_bf16_emulation(q, k, v, True, fault=fault)
+    bound = t_fa.bf16_bound(q, k, v, want, causal=True)
+    assert ((got.float() - want.float()).abs() > bound).any()
+
+
 # the sweep of tests/test_kernels.py::test_embedding_bag_sweep, plus
 # DeepFM's widths (F=39, D=10 and the D=1 linear table)
 @pytest.mark.parametrize("r,d,b,f", [(50, 8, 4, 3), (200, 16, 8, 5),
@@ -467,12 +555,13 @@ def test_embedding_bag_plain_bit_equal_to_pallas(ref, r, d, b, f):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [128, 200])
+@pytest.mark.parametrize("s", [128, 200, 2064])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gpu_flash_attention_matches_plain(cuda, s, hd, dtype):
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    """f32 within 2e-5 (sums in another order); bf16 within
+    ``bf16_bound`` (P rounded to bf16 before P V)."""
     q, k, v = (x.to(dtype) for x in _to(cuda, *_qkv(s + hd, 6, s, hd)))
     for causal in (True, False):
         before = t_fa.flash_attention.launches
@@ -481,8 +570,11 @@ def test_gpu_flash_attention_matches_plain(cuda, s, hd, dtype):
         assert t_fa.flash_attention.launches == before + 1
         want = t_fa.flash_attention_plain(q, k, v, causal=causal)
         assert got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+        if dtype == torch.bfloat16:
+            bound = t_fa.bf16_bound(q, k, v, want, causal=causal)
+            assert ((got.float() - want.float()).abs() <= bound).all()
+        else:
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu
@@ -490,6 +582,17 @@ def test_gpu_flash_attention_refuses_other_head_dims(cuda):
     q, k, v = _to(cuda, *_qkv(0, 2, 64, 32))
     with pytest.raises(ValueError, match="hd in"):
         t_fa.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_bf16_refuses_misaligned_inputs(cuda):
+    """The bf16 kernel's TMA descriptors need 16-byte-aligned tensors: a
+    contiguous view one element in raises instead of launching."""
+    q, k, v = (x.to(torch.bfloat16) for x in _to(cuda, *_qkv(1, 2, 64, 64)))
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        t_fa.flash_attention(shifted, k, v)
 
 
 @pytest.mark.gpu
