@@ -11,7 +11,9 @@ a line of its own:
 
 1. device and build, and the built kernels' instructions: the bf16
    ``flash_attention`` must hold wgmma (HGMMA) and TMA loads (UTMALDG),
-   ``delta_scan`` no tensor-core instruction (HMMA, HGMMA);
+   ``delta_scan`` and ``ivf_scan_merge`` no tensor-core instruction
+   (HMMA, HGMMA), the staged ``ivf_scan_merge`` a bulk async copy
+   (UBLKCP);
 2. each kernel against its plain version at main-path shapes, on
    integer-valued inputs (bit-equal, ties included) and on L2-normalised
    Gaussian inputs (scores within 1e-5, ids equal up to near-tie swaps);
@@ -188,10 +190,15 @@ def check_flash(got, q, k, v, causal):
     return float(diff.max()), ratio
 
 
+SASS_FAMILIES = ("flash_attention_bf16", "delta_scan",
+                 "ivf_scan_merge_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "UBLKCP", "LDGSTS")
+
+
 def sass_counts(so):
-    """Count, in the built library ``so``, the tensor-core and TMA
-    instructions of each kernel whose name holds "flash_attention_bf16"
-    or "delta_scan" (``cuobjdump -sass``)."""
+    """Count, in the built library ``so``, the tensor-core, TMA and async
+    copy instructions of each kernel whose name holds one of
+    ``SASS_FAMILIES`` (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -202,13 +209,11 @@ def sass_counts(so):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            fn = next((k for k in ("flash_attention_bf16", "delta_scan")
-                       if k in name), None)
+            fn = next((k for k in SASS_FAMILIES if k in name), None)
             if fn:
                 # the kernel's name from the family on (template arguments)
                 name = name[name.index(fn):][:48]
-                counts.setdefault(fn, {})[name] = dict.fromkeys(
-                    ("HGMMA", "UTMALDG", "HMMA"), 0)
+                counts.setdefault(fn, {})[name] = dict.fromkeys(SASS_OPS, 0)
             continue
         op = re.search(r"\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z0-9_]+)", line)
         if fn and op and op.group(1) in counts[fn][name]:
@@ -603,12 +608,14 @@ def main() -> None:
                 for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA}
 
-    def time_call(name, fn, reps):
+    def time_call(name, fn, reps, profiled=True):
         """Median CUDA-event ms of one call, over ``reps`` calls after a
         warm-up.  Each call is queued behind a device-side sleep longer
         than the host takes to enqueue it, so the card never waits on
         the host between a call's two events.  The profiler's (CUPTI)
-        device time of the same calls is printed beside it."""
+        device time of the same calls is printed beside it, unless not
+        ``profiled`` (the timing phase's diagnostic lines, which are no
+        kernel's row: the run keeps its profiler sessions few)."""
         for _ in range(3):
             fn()
         sync()
@@ -623,6 +630,10 @@ def main() -> None:
             events.append((a, b))
         sync()
         med = float(np.median([a.elapsed_time(b) for a, b in events]))
+        if not profiled:
+            print(f"  {name}: {med:.6f} ms median by events over {reps} "
+                  f"calls")
+            return med
         with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
@@ -660,9 +671,18 @@ def main() -> None:
                             for c in flash.values()):
             raise AssertionError("a bf16 flash_attention kernel has no "
                                  "HGMMA or no UTMALDG")
-        if not sass.get("delta_scan") or any(
-                c["HGMMA"] or c["HMMA"] for c in sass["delta_scan"].values()):
-            raise AssertionError("delta_scan has a tensor-core instruction")
+        for fam in ("delta_scan", "ivf_scan_merge_kernel"):
+            if not sass.get(fam) or any(c["HGMMA"] or c["HMMA"]
+                                        for c in sass[fam].values()):
+                raise AssertionError(f"{fam} is missing or has a "
+                                     f"tensor-core instruction")
+        # the staged instantiation (kStaged = true) streams list rows by
+        # cp.async.bulk
+        staged = [c for n, c in sass["ivf_scan_merge_kernel"].items()
+                  if "ILb1E" in n]
+        if not staged or not all(c["UBLKCP"] or c["LDGSTS"] for c in staged):
+            raise AssertionError("the staged ivf_scan_merge_kernel has no "
+                                 "async copy (UBLKCP or LDGSTS)")
 
     # -- 2. each kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
@@ -705,40 +725,43 @@ def main() -> None:
         x = rng.normal(size=shape).astype(np.float32)
         return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
-    def kernel_inputs(integer: bool, n_lists: int = 256):
+    def kernel_inputs(integer: bool, n_lists: int = 256, k: int = K,
+                      chunk: int = CHUNK, d: int = D):
         def draw_(shape):
             return draw(integer, shape)
-        docs = draw_((n_lists * LIST_PAD + LIST_PAD, D))
+        docs = draw_((n_lists * LIST_PAD + LIST_PAD, d))
         # doc ids differ from row positions, so a kernel that wrote the
         # row instead of ids[row] would fail
         ids = rng.permutation(docs.shape[0]).astype(np.int32)
         ids[rng.random(ids.size) < 0.02] = -1          # tombstones
         ids[n_lists * LIST_PAD:] = -1
-        q = draw_((B, D))
-        offs = np.stack([rng.choice(n_lists, CHUNK, replace=False)
+        q = draw_((B, d))
+        offs = np.stack([rng.choice(n_lists, chunk, replace=False)
                          for _ in range(B)]) * LIST_PAD
-        sizes = rng.integers(0, LIST_PAD + 1, (B, CHUNK))
+        sizes = rng.integers(0, LIST_PAD + 1, (B, chunk))
         sizes[:, 0] = LIST_PAD
-        run_s = -np.sort(-draw_((B, K)), axis=1)
-        run_i = rng.integers(n_lists * LIST_PAD, 1 << 29, (B, K))
-        run_s[:, K - 10:], run_i[:, K - 10:] = -np.inf, -1   # empty slots
+        run_s = -np.sort(-draw_((B, k)), axis=1)
+        run_i = rng.integers(n_lists * LIST_PAD, 1 << 29, (B, k))
+        n_empty = min(10, k - 1)
+        run_s[:, k - n_empty:], run_i[:, k - n_empty:] = -np.inf, -1
         return [t(a) for a in (q, docs, ids.reshape(-1, BLK_L),
                                (offs // BLK_L).astype(np.int32).reshape(-1),
                                sizes.astype(np.int32).reshape(-1), run_s,
                                run_i.astype(np.int32))]
 
-    def delta_inputs(integer: bool, boffs, n_lists: int = 256):
+    def delta_inputs(integer: bool, boffs, n_lists: int = 256,
+                     chunk: int = CHUNK, d: int = D):
         """A CAP-slot delta stream for kernel_inputs' probes: ids a random
         permutation past the doc ids, a fifth of the slots tombstoned
         (-1), the last tenth empty (id and assign -1), an eighth of the
         buffer assigned to one probed list, and gates of -2 past the
         budget on some slots."""
-        cids = (boffs.view(B, CHUNK).long() * BLK_L // LIST_PAD).cpu().numpy()
-        dvecs = draw(integer, (CAP, D))
+        cids = (boffs.view(B, chunk).long() * BLK_L // LIST_PAD).cpu().numpy()
+        dvecs = draw(integer, (CAP, d))
         dids = (rng.permutation(CAP) + (n_lists + 1) * LIST_PAD
                 ).astype(np.int32)
         dassign = rng.integers(0, n_lists, CAP).astype(np.int32)
-        dassign[:CAP // 8] = cids[0, 1]
+        dassign[:CAP // 8] = cids[0, min(1, chunk - 1)]
         dids[rng.random(CAP) < 0.2] = -1
         dids[CAP - CAP // 10:], dassign[CAP - CAP // 10:] = -1, -1
         gates = cids.astype(np.int32)
@@ -763,6 +786,46 @@ def main() -> None:
         max_err[name] = max(max_err[name], err)
         print(f"{what}: max_abs_err {err}, near-tie id swaps {swaps}, "
               f"count mismatches {int((g[2] != w[2]).sum())}")
+
+    def fused_edges():
+        """The fused kernel's edges in both modes, on integer inputs at
+        the main path's widths (B 128, list_pad 256, cap 4,096; 64 lists):
+        every live buffer entry gated on one slot, an all-inactive wave
+        (sizes 0, gates -2), the running k-th tied by candidates, k 1 and
+        1,024, chunk 1 and 8, d 100 and d 30 (rows read from global
+        memory); bit-equal to the plain version."""
+        for name, kw in (("all gated on one slot", {}), ("inactive", {}),
+                         ("ties", {}), ("k=1", dict(k=1)),
+                         ("k=1024", dict(k=1024)), ("chunk=1", dict(chunk=1)),
+                         ("chunk=8", dict(chunk=8)), ("d=100", dict(d=100)),
+                         ("d=30", dict(d=30))):
+            k, chunk = kw.get("k", K), kw.get("chunk", CHUNK)
+            q, docs, ids2d, boffs, sizes, run_s, run_i = kernel_inputs(
+                True, n_lists=64, **kw)
+            dargs = delta_inputs(True, boffs, n_lists=64, chunk=chunk,
+                                 d=kw.get("d", D))
+            if name == "all gated on one slot":
+                dargs["delta_ids"] = torch.arange(
+                    CAP, dtype=torch.int32, device=dev) + 65 * LIST_PAD
+                dargs["delta_assign"] = torch.full_like(
+                    dargs["delta_assign"], int(dargs["gate_cids"][1]))
+            if name == "inactive":
+                sizes = torch.zeros_like(sizes)
+                dargs["gate_cids"] = torch.full_like(dargs["gate_cids"], -2)
+            if name == "ties":
+                run_s = torch.zeros_like(run_s)
+                run_i = t(np.stack([rng.choice(64 * LIST_PAD, k,
+                                               replace=False)
+                                    for _ in range(B)]).astype(np.int32))
+            for stream in ({}, dargs):
+                args = (q, docs, ids2d, boffs, sizes, run_s, run_i)
+                kws = dict(k=k, list_pad=LIST_PAD, chunk=chunk, blk_l=BLK_L,
+                           **stream)
+                g = k_sm.ivf_scan_merge(*args, **kws)
+                sync()
+                w = k_sm.ivf_scan_merge_plain(*args, **kws)
+                mode = "ivf_scan_merge+delta" if stream else "ivf_scan_merge"
+                check_fused(g, w, True, f"{mode} edge ({name})", mode)
 
     with phase("kernels_vs_plain"):
         for label, integer in (("a", True), ("b", False)):
@@ -828,6 +891,7 @@ def main() -> None:
             check_fused(g, w, integer, f"ivf_scan_merge+delta ({label})",
                         "ivf_scan_merge+delta")
         del q, docs, ids2d, got, want, g, w, dargs
+        fused_edges()
         model_zoo_kernels_vs_plain(ctx)
 
     # -- 3. the main path at the paper's widths -------------------------------
@@ -1095,10 +1159,19 @@ def main() -> None:
             u = torch.unique(c)
             return int(index.cluster_sizes[u].sum())
 
-        # ivf_scan: probe slot 1 of every query
+        # ivf_scan: probe slot 1 of every query.  The function scores all
+        # list_pad rows of each tile it is given (rows past the size too),
+        # so its bound reads each unique tile's list_pad rows once and
+        # does B * list_pad dot products
         live1 = unique_live_rows(cids[:, 1])
-        bnd = bound(B * D * 4 + live1 * D * 4 + B * LIST_PAD * 4 + B * 4,
-                    2 * live1 * D)
+        tiles1 = int(torch.unique(cids[:, 1]).numel())
+        old_bnd = bound(B * D * 4 + live1 * D * 4 + B * LIST_PAD * 4 + B * 4,
+                        2 * live1 * D)
+        bnd = bound(B * D * 4 + tiles1 * LIST_PAD * D * 4
+                    + B * LIST_PAD * 4 + B * 4, 2 * B * LIST_PAD * D)
+        print(f"ivf_scan bound: {bnd[0]:.6f} ms ({bnd[1]}; {tiles1} unique "
+              f"tiles of {LIST_PAD} rows); PR 15's reckoning of live rows "
+              f"only {old_bnd[0]:.6f} ms ({old_bnd[1]})")
         rows.append(dict(
             name="ivf_scan", route="cuda",
             source="src/repro_torch/csrc/ivf_scan.cu",
@@ -1142,8 +1215,33 @@ def main() -> None:
                     k=K, list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L), 10),
             bound=bnd, library_ms=None))
         print(f"timing inputs: ivf_scan {live1} live rows of "
-              f"{B * LIST_PAD} tile rows; ivf_scan_merge {live_c} live "
-              f"rows of {B * CHUNK * LIST_PAD}")
+              f"{B * LIST_PAD} tile rows; ivf_scan_merge {live_c} unique "
+              f"live rows, {int(szf.sum())} live rows summed over the "
+              f"{B * CHUNK} slots (each query reads its own), of "
+              f"{B * CHUNK * LIST_PAD}")
+        # one CTA walks one query's chunk: the query with the most rows,
+        # alone, against the whole wave
+        per_q = sz.sum(1)
+        top = int(torch.argmax(per_q))
+        ms_top = time_call(
+            "ivf_scan_merge, the query with the most rows alone",
+            lambda: k_sm.ivf_scan_merge(
+                qb[top:top + 1], index.docs, ids2d,
+                boffs.view(B, CHUNK)[top].contiguous(),
+                szf.view(B, CHUNK)[top].contiguous(), empty_s[:1],
+                empty_i[:1], k=K, list_pad=LIST_PAD, chunk=CHUNK,
+                blk_l=BLK_L), 50, profiled=False)
+        print(f"ivf_scan_merge rows per query: mean "
+              f"{float(per_q.float().mean()):.1f}, median "
+              f"{float(per_q.float().median()):.1f}, max {int(per_q.max())}; "
+              f"the query with the most rows alone {ms_top:.6f} ms, the "
+              f"wave {rows[2]['ms']:.6f} ms")
+        stages = k_sm.ring_stages(D, K, CHUNK, LIST_PAD, True,
+                                  _build.max_shared_optin(dev))
+        smem = k_sm.smem_bytes(D, K, CHUNK, LIST_PAD, stages)
+        print(f"ivf_scan_merge shared memory: {smem} bytes dynamic "
+              f"({stages} ring stages of {k_sm.TILE_ROWS} rows) with and "
+              f"without the stream, at any cap")
         # the delta buffer as the live serve holds it: CAP slots, the
         # first half live (noisy copies of corpus docs, assigned to their
         # nearest centroid), the rest empty (zeros, id and assign -1)
@@ -1176,13 +1274,22 @@ def main() -> None:
             library_ms=time_call("torch.matmul (no TF32)",
                                  lambda: torch.matmul(qb, bvecs.T), 50)))
         # ivf_scan_merge+delta: the same tiles as ivf_scan_merge, plus the
-        # stream; each query scores the live buffer rows
+        # stream.  Its output depends on the buffer's ids and assigns (cap
+        # x 8 bytes) and on the gated entries only: their rows are read
+        # once, and each is scored by each slot that gates it
         gated = int(sum(((bassign[None, :] == cids[:, j:j + 1]).sum()
                          for j in range(CHUNK))))
-        bnd = bound(B * D * 4 + live_c * (D * 4 + 4) + B * K * 8
-                    + B * CHUNK * (K * 8 + 4 + 8) + n_buf * D * 4
-                    + CAP * 8 + B * CHUNK * 4,
-                    2 * live_c * D + 2 * B * n_buf * D)
+        gated_rows = int(torch.isin(bassign, cids).sum())
+        base_bytes = B * D * 4 + live_c * (D * 4 + 4) + B * K * 8 \
+            + B * CHUNK * (K * 8 + 4 + 8) + CAP * 8 + B * CHUNK * 4
+        old_bnd = bound(base_bytes + n_buf * D * 4,
+                        2 * live_c * D + 2 * B * n_buf * D)
+        bnd = bound(base_bytes + gated_rows * D * 4,
+                    2 * live_c * D + 2 * gated * D)
+        print(f"ivf_scan_merge+delta bound: {bnd[0]:.6f} ms ({bnd[1]}; "
+              f"{gated_rows} gated buffer rows); PR 15's reckoning of every "
+              f"live buffer row per query {old_bnd[0]:.6f} ms "
+              f"({old_bnd[1]})")
         rows.append(dict(
             name="ivf_scan_merge+delta", route="cuda",
             source="src/repro_torch/csrc/ivf_scan_merge.cu",
@@ -1203,6 +1310,20 @@ def main() -> None:
               f"ivf_scan_merge+delta gates {gated} buffer entries over "
               f"{B * CHUNK} slots; without the stream on the same tiles "
               f"{rows[2]['ms']:.6f} ms")
+        # the stream's fixed cost: the same launch with every gate at -2
+        # (the buffer's assigns are read, nothing is gated)
+        no_gate = dict(stream, gate_cids=torch.full_like(
+            stream["gate_cids"], -2))
+        ms_no_gate = time_call(
+            "ivf_scan_merge+delta, every gate -2",
+            lambda: k_sm.ivf_scan_merge(
+                qb, index.docs, ids2d, boffs, szf, empty_s, empty_i, k=K,
+                list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L, **no_gate), 50,
+            profiled=False)
+        print(f"timing: ivf_scan_merge+delta with every gate at -2 "
+              f"{ms_no_gate:.6f} ms; without the stream "
+              f"{rows[2]['ms']:.6f} ms; with the stream "
+              f"{rows[-1]['ms']:.6f} ms")
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
                                  rs_params["table"], rs_rows)
 

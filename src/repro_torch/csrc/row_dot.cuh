@@ -1,9 +1,10 @@
 // The one dot product of the IVF kernels: a query (staged in shared
 // memory) against one document row, by one warp.
 //
-// ivf_scan.cu and ivf_scan_merge.cu score through this routine, and
-// delta_scan.cu's register tile keeps its order (the same lane-strided
-// FMAs, the same butterfly), so a document's score is the same bits on
+// ivf_scan.cu scores through this routine, and ivf_scan_merge.cu's
+// two-row dot2 and delta_scan.cu's register tile keep its order (the
+// same lane-strided FMAs, the same butterfly), so a document's score is
+// the same bits on
 // the per-probe pair, on the fused path, in the delta buffer and after
 // merge_delta moved it into a list ("fused == per-probe pair" and "live
 // overlay == rebuilt index" hold on the card).  Lane l accumulates elements l,

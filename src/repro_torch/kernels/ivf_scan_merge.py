@@ -9,16 +9,19 @@ and snapshot the slot.
 
 With the delta stream (the live index's buffer: ``delta_vecs``,
 ``delta_ids``, ``delta_assign`` and ``gate_cids``, all four or none)
-the buffer is scored once per query, and at each slot the entries whose
-assign equals the slot's gate and whose id is >= 0 join the slot's
-candidates, NEW-marked.  One merge of the running top-k with the list
-rows and the gated entries keeps the same records as the reference's
-two merges, because the packed order is total.
+at each slot the entries whose assign equals the slot's gate and whose
+id is >= 0 join the slot's candidates, NEW-marked.  One merge of the
+running top-k with the list rows and the gated entries keeps the same
+records as the reference's two merges, because the packed order is
+total.
 
 On a CUDA tensor the wrapper launches ``csrc/ivf_scan_merge.cu`` (one
-CTA walks one query's chunk, the running top-k in shared memory); on a
-CPU tensor it runs :func:`ivf_scan_merge_plain`.  Scores keep the -1e30
-sentinel on empty slots; ``kernels/ops.py`` maps it back to -inf.
+CTA walks one query's chunk, the running top-k in shared memory, the
+list rows streamed into a shared ring by ``cp.async.bulk`` from a
+producer warp, only the candidates above the running k-th merged, only
+the gated buffer rows scored); on a CPU tensor it runs
+:func:`ivf_scan_merge_plain`.  Scores keep the -1e30 sentinel on empty
+slots; ``kernels/ops.py`` maps it back to -inf.
 Launches with the stream count in ``ivf_scan_merge.delta_launches``,
 those without it in ``ivf_scan_merge.launches``.
 """
@@ -36,6 +39,39 @@ NEG = -1e30          # finite stand-in for -inf inside the sort network
 VALID_MIN = -1e29    # scores above this are real candidates
 KEY_NEG = sort.key_of(NEG)
 KEY_VALID = sort.key_of(VALID_MIN)
+
+# csrc/ivf_scan_merge.cu's layout: a stage holds TILE_ROWS rows and their
+# ids, the gated list LIST entries
+TILE_ROWS, LIST, MAX_STAGES = 16, 256, 4
+STATIC_SMEM = 128    # the kernel's static shared memory, rounded up
+
+
+def smem_bytes(d: int, k: int, chunk: int, list_pad: int,
+               stages: int) -> int:
+    """The kernel's dynamic shared memory (``smem_bytes`` in the source):
+    the ring's rows and ids, the running top-k and its merge scratch, a
+    survivor buffer that holds a slot's list rows and its sorted copy, q,
+    the gated list and gather buffer, five ints per slot.  No term grows
+    with the delta buffer's capacity."""
+    surv = max(list_pad, TILE_ROWS)      # a slot's list rows
+    return (stages * TILE_ROWS * (d + 1) * 4 + 2 * k * 8
+            + 16 * surv + d * 4 + 3 * LIST * 4
+            + 5 * chunk * 4)
+
+
+def ring_stages(d: int, k: int, chunk: int, list_pad: int, aligned: bool,
+                limit: int) -> int:
+    """Stages of the kernel's ring: the most (up to MAX_STAGES) that fit
+    ``limit`` bytes of shared memory; 0 (rows and ids read from global
+    memory) when ``cp.async.bulk`` cannot copy them (d not a multiple of
+    4, or not ``aligned``: docs and ids 16-byte aligned, blk_l a multiple
+    of TILE_ROWS) or two stages do not fit."""
+    if d % 4 or not aligned:
+        return 0
+    for stages in range(MAX_STAGES, 1, -1):
+        if smem_bytes(d, k, chunk, list_pad, stages) + STATIC_SMEM <= limit:
+            return stages
+    return 0
 
 
 def ivf_scan_merge_plain(queries, docs, ids2d, block_offsets, sizes,
@@ -136,11 +172,13 @@ def ivf_scan_merge(queries: torch.Tensor, docs: torch.Tensor,
             delta_assign=delta_assign, gate_cids=gate_cids)
     if not 0 < k <= 1024:
         raise ValueError(f"ivf_scan_merge: k={k} outside (0, 1024]")
-    # records for the worst slot (every buffer entry gated on it), the
-    # query, the delta strip, and the kernel's static gated counter
-    m_max = sort.next_pow2(k + list_pad + cap)
-    _build.check_smem("ivf_scan_merge", dev, m_max * 8 + (d + cap) * 4 + 16,
-                      f"k={k}, list_pad={list_pad}, d={d}, cap={cap}")
+    aligned = (docs.data_ptr() % 16 == 0 and ids2d.data_ptr() % 16 == 0
+               and blk_l % TILE_ROWS == 0)
+    stages = ring_stages(d, k, chunk, list_pad, aligned,
+                         _build.max_shared_optin(dev))
+    _build.check_smem("ivf_scan_merge", dev,
+                      smem_bytes(d, k, chunk, list_pad, stages) + STATIC_SMEM,
+                      f"k={k}, d={d}, chunk={chunk}, list_pad={list_pad}")
     out_s = torch.empty((b, chunk, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, chunk, k), dtype=torch.int32, device=dev)
     cnt = torch.empty((b, chunk), dtype=torch.int32, device=dev)
@@ -151,7 +189,7 @@ def ivf_scan_merge(queries: torch.Tensor, docs: torch.Tensor,
             ids2d.data_ptr(), block_offsets.data_ptr(), sizes.data_ptr(),
             run_scores.data_ptr(), run_ids.data_ptr(), *dptr,
             out_s.data_ptr(), out_i.data_ptr(), cnt.data_ptr(), b, d, k,
-            chunk, list_pad, blk_l, cap, m_max)
+            chunk, list_pad, blk_l, cap, stages)
         if has_delta:
             ivf_scan_merge.delta_launches += 1
         else:

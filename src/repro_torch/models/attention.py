@@ -5,9 +5,10 @@ cache (port of the GQA part of ``repro.models.attention``).
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card, its plain
 f32 softmax on the CPU), where the reference runs the chunked jnp path
 ``_causal_chunk_attn`` and names the Pallas flash kernel as its TPU
-replacement.  The two differ in one rounding: the chunked path casts the
-probabilities to bf16 before P V, the flash kernel keeps P V in f32, so
-the port agrees with the reference at bf16 tolerance.
+replacement.  On the card the bf16 kernel rounds the probabilities to
+bf16 before P V, as the chunked path does; only the plain version on the
+CPU keeps P in f32, so there the port agrees with the reference at bf16
+tolerance.
 
 The reference's sharding annotations (``act``) have no meaning on one
 device and are gone.  MLA and the int8 KV cache wait (``ROADMAP.md``).

@@ -250,7 +250,7 @@ def _delta_fused_inputs(seed=5, b=6, chunk=4, lp=256, k=10, d=16, cap=300,
     dvecs = draw((cap, d))
     dids = perm[docs.shape[0]:].copy()
     dassign = rng.integers(0, n_lists, cap).astype(np.int32)
-    dassign[: cap // 8] = cids[0, 1]          # a crowd in one probed list
+    dassign[: cap // 8] = cids[0, min(1, chunk - 1)]   # a crowd in a list
     dids[rng.random(cap) < 0.2] = -1          # tombstoned
     dids[cap - cap // 10:], dassign[cap - cap // 10:] = -1, -1   # empty
     gates = cids.copy()
@@ -382,6 +382,127 @@ def test_gpu_ivf_scan_merge_delta_matches_plain(cuda):
                                      blk_l=64, **delta)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _edge_case(name):
+    """Integer fused inputs with the delta stream for one edge of the
+    kernel's design (``test_gpu_ivf_scan_merge_edges_match_plain``)."""
+    kw = dict(b=4, k=100, d=16, cap=300, integer=True)
+    kw.update({"k1": dict(k=1), "k1024": dict(k=1024, d=768),
+               "chunk1": dict(chunk=1), "chunk8": dict(chunk=8),
+               "d100": dict(d=100), "d30": dict(d=30),
+               "all_gated": dict(d=768, cap=4096)}.get(name, {}))
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _delta_fused_inputs(**kw)
+    rng = np.random.default_rng(7)
+    n_ids = docs.shape[0] + dvecs.shape[0]
+    if name == "all_gated":
+        # every buffer entry live and gated on one slot: past the gated
+        # list and the survivor buffer, so rescans and several merges
+        dids = np.arange(n_ids, n_ids + len(dids), dtype=np.int32)
+        dassign[:] = gates[0, 1]
+    if name in ("inactive", "empty_slots", "ties"):
+        # a running top-k out of its packed order among equal scores
+        rs = rng.integers(-3, 4, rs.shape).astype(np.float32)
+        rs = -np.sort(-rs, 1)
+        ri = rng.integers(0, n_ids, ri.shape).astype(np.int32)
+    if name in ("inactive", "empty_slots"):
+        rs[:, k - 10:], ri[:, k - 10:] = -np.inf, -1
+    if name == "inactive":
+        sizes[:], gates[:] = 0, -2
+    if name == "ties":
+        # the running k-th's score is a common candidate score; ids on
+        # both sides of the k-th's among equal scores
+        rs[:] = 0.0
+        ri[:] = np.sort(rng.choice(n_ids, ri.shape[1], replace=False))[::-1]
+    return (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates,
+            k, lp, chunk)
+
+
+def test_fused_layout_does_not_grow_with_cap():
+    """The kernel's shared memory (mirrored by smem_bytes) has no cap term;
+    the ring takes the most stages that fit, none where cp.async.bulk
+    cannot copy the rows and ids."""
+    limit = 232_448                        # an H100's opt-in limit
+    assert "cap" not in t_sm.smem_bytes.__code__.co_varnames
+    assert t_sm.ring_stages(768, 100, 4, 256, True, limit) == 4
+    assert t_sm.smem_bytes(768, 100, 4, 256, 4) == 208_784
+    assert t_sm.ring_stages(768, 1024, 4, 256, True, limit) == 4
+    assert t_sm.ring_stages(100, 100, 4, 256, True, limit) == 4
+    assert t_sm.ring_stages(30, 100, 4, 256, True, limit) == 0  # 120-byte rows
+    assert t_sm.ring_stages(768, 100, 4, 256, False, limit) == 0
+    assert t_sm.ring_stages(1536, 100, 4, 256, True, limit) == 2
+    assert t_sm.ring_stages(4096, 100, 4, 256, True, limit) == 0  # 2 stages
+
+
+@pytest.mark.parametrize("name", ["ties", "empty_slots", "inactive", "k1",
+                                  "k1024", "chunk1", "chunk8", "d30"])
+def test_ivf_scan_merge_edges_plain_match_kernel_model(name):
+    """The edge cases of the gpu test below, on the CPU: the plain fused
+    version equals, bit for bit, a model of the kernel's merge
+    (``tests/test_torch_sort.py``: the running top-k ranked once,
+    candidates 16 at a time filtered by the running k-th into a
+    512-record buffer, merged by rank, re-ranked after the marks are
+    stripped) fed each slot's list rows and gated entries."""
+    from test_torch_sort import _kernel_rank, _kernel_slot, _words
+
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _edge_case(name)
+    q, dd, dv = T(qs), T(docs), T(dvecs)
+    s, i, c = t_sm.ivf_scan_merge(
+        q, dd, T(ids.reshape(-1, 64)), T(bo.reshape(-1)),
+        T(sizes.reshape(-1)), T(rs), T(ri), k=k, list_pad=lp, chunk=chunk,
+        delta_vecs=dv, delta_ids=T(dids), delta_assign=T(dassign),
+        gate_cids=T(gates.reshape(-1)))
+    key = t_sm.sort.score_to_key
+    d_key = key(t_ds.delta_scan_plain(q, dv)).numpy()
+    mark = t_sm.sort.NEW_MARK
+    for b in range(qs.shape[0]):
+        run = _kernel_rank(_words(
+            key(torch.clamp_min(T(rs[b]), t_sm.NEG)).numpy(), ri[b]), k)
+        for j in range(chunk):
+            rows = bo[b, j] * 64 + np.arange(sizes[b, j])
+            rows = rows[ids[rows] >= 0]
+            l_key = key(t_scan.score_rows(q[b:b + 1], dd, T(rows)[None]))[0]
+            gated = np.flatnonzero((dassign == gates[b, j]) & (dids >= 0))
+            cands = np.concatenate([
+                _words(l_key.numpy(), ids[rows] | mark),
+                _words(d_key[b, gated], dids[gated] | mark)])
+            w_keys, w_ids, w_cnt, run = _kernel_slot(run, cands, k, 512, 16)
+            np.testing.assert_array_equal(key(s[b, j]).numpy(), w_keys)
+            np.testing.assert_array_equal(i[b, j].numpy(), w_ids)
+            assert c[b, j] == w_cnt, (b, j)
+    if name == "inactive":
+        assert torch.equal(c, torch.full_like(c, 10))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["all_gated", "inactive", "ties",
+                                  "empty_slots", "k1", "k1024", "chunk1",
+                                  "chunk8", "d100", "d30"])
+def test_gpu_ivf_scan_merge_edges_match_plain(cuda, name):
+    """The redesign's edges, bit-equal to the plain version in both modes
+    (one launch each): every buffer entry gated on one slot at cap 4,096,
+    an all-inactive wave, ties with the running k-th, empty running
+    slots, k 1 and 1,024, chunk 1 and 8, d 100 (staged) and d 30 (rows
+    read from global memory)."""
+    (qs, docs, ids, bo, sizes, rs, ri, dvecs, dids, dassign, gates, k, lp,
+     chunk) = _edge_case(name)
+    args = _to(cuda, qs, docs, ids.reshape(-1, 64), bo.reshape(-1),
+               sizes.reshape(-1), rs, ri)
+    delta = dict(zip(("delta_vecs", "delta_ids", "delta_assign",
+                      "gate_cids"),
+                     _to(cuda, dvecs, dids, dassign, gates.reshape(-1))))
+    for stream, counter in (({}, "launches"), (delta, "delta_launches")):
+        before = getattr(t_sm.ivf_scan_merge, counter)
+        got = t_sm.ivf_scan_merge(*args, k=k, list_pad=lp, chunk=chunk,
+                                  **stream)
+        torch.cuda.synchronize()
+        assert getattr(t_sm.ivf_scan_merge, counter) == before + 1
+        want = t_sm.ivf_scan_merge_plain(*args, k=k, list_pad=lp,
+                                         chunk=chunk, blk_l=64, **stream)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (name, counter)
 
 
 @pytest.mark.gpu

@@ -82,3 +82,110 @@ def test_merge_packed_matches_reference(k, m):
         torch.from_numpy(new_k), torch.from_numpy(new_i), m_pad,
         pad_key=pad_key).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _words(keys, idw):
+    """(key, id word) -> one int64 word each, ordered as the records."""
+    return (keys.astype(np.int64) << 32) | (idw.astype(np.int64) + (1 << 31))
+
+
+def _rank_merge(a, b, k):
+    """The kernel's merge of sorted ``a`` with unsorted ``b``: b sorted
+    into a copy (equal records in any order: they are identical), a[i]
+    placed at i + #{copy above it} and the copy's r-th at r + #{a at or
+    above it}; the ranks below k."""
+    srt = np.empty(len(b), np.int64)
+    for j, x in enumerate(b):
+        srt[int((b > x).sum() + (b[:j] == x).sum())] = x
+    out = np.empty(k, np.int64)
+    for i, x in enumerate(a):
+        pos = i + int((srt > x).sum())
+        if pos < k:
+            out[pos] = x
+    for r, x in enumerate(srt):
+        pos = r + int((a >= x).sum())
+        if pos < k:
+            out[pos] = x
+    return out
+
+
+def _kernel_slot(run, cands, k, cand_cap, tile):
+    """One probe slot of the fused kernel, as a model on int64 words:
+    ``run`` in packed order, candidates fed ``tile`` at a time, those
+    above the running k-th kept in a ``cand_cap`` buffer that is merged
+    by rank when another tile could overflow it and at the slot's end;
+    then the marks stripped, the lanes kept counted, and the running
+    top-k re-ranked within equal-key groups where stripping broke the
+    packed order.  Returns the snapshot's keys and ids, its count and the
+    next slot's running top-k."""
+    buf = []
+    for t0 in range(0, len(cands), tile):
+        if len(buf) + tile > cand_cap:
+            run, buf = _rank_merge(run, np.asarray(buf, np.int64), k), []
+        buf += [c for c in cands[t0:t0 + tile] if c > run[k - 1]]
+    if buf:
+        run = _rank_merge(run, np.asarray(buf, np.int64), k)
+    keys = (run >> 32).astype(np.int32)
+    idw = ((run & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
+    kept = int(((keys > tsort.key_of(-1e29))
+                & ~((idw >= 0) & ((idw & tsort.NEW_MARK) != 0))).sum())
+    clean = np.where(idw >= 0, idw & ~tsort.NEW_MARK, idw)
+    stripped = _words(keys, clean)
+    nxt = stripped
+    if ((keys[:-1] == keys[1:]) & (clean[1:] > clean[:-1])).any():
+        nxt = np.empty(k, np.int64)
+        for t, x in enumerate(stripped):
+            group = np.flatnonzero(keys == keys[t])    # contiguous
+            o = stripped[group]
+            nxt[group[0] + int((o > x).sum() + (o[group < t] == x).sum())] = x
+    return keys, clean, k - kept, nxt
+
+
+def _kernel_rank(run, k):
+    """The kernel's first step: the incoming running top-k ranked."""
+    return _rank_merge(np.zeros(0, np.int64), run, k)
+
+
+@pytest.mark.parametrize("k,n,cand_cap,tile", [
+    (10, 300, 16, 4), (100, 256, 512, 16), (1, 50, 8, 4), (64, 4096, 32, 16)])
+def test_filtered_merge_matches_merge_packed(k, n, cand_cap, tile):
+    """The fused kernel's claim, on integer scores with many ties, marked
+    candidates, duplicate records and empty running slots, over three
+    chained slots: filtering by the running k-th, batched merges by rank,
+    marks stripped at the slot's end and the re-rank after it give
+    merge_packed's records and new-entry count at every slot."""
+    rng = np.random.default_rng(k + n)
+    pad_key = tsort.key_of(-1e30)
+    for trial in range(4):
+        run_k = tsort.score_to_key(torch.from_numpy(
+            rng.integers(-3, 4, k).astype(np.float32))).numpy()
+        run_i = rng.integers(0, 40, k).astype(np.int32)
+        n_empty = rng.integers(0, k + 1) if trial else k
+        run_k[k - n_empty:], run_i[k - n_empty:] = pad_key, -1
+        # the running slots arrive out of order among equal records
+        perm = rng.permutation(k)
+        run_k, run_i = run_k[perm], run_i[perm]
+        model = _kernel_rank(_words(run_k, run_i), k)
+        for _ in range(3):
+            new_k = tsort.score_to_key(torch.from_numpy(
+                rng.integers(-3, 4, n).astype(np.float32))).numpy()
+            new_i = rng.integers(0, 40, n).astype(np.int32)
+            new_i[rng.random(n) < 0.1] = -1             # not candidates
+            new_k[new_i < 0] = pad_key
+            new_iw = np.where(new_i >= 0, new_i | tsort.NEW_MARK, -1)
+            want = tsort.merge_packed(
+                tsort.pack(torch.from_numpy(run_k[None]),
+                           torch.from_numpy(run_i[None])),
+                torch.from_numpy(new_k[None]), torch.from_numpy(new_iw[None]),
+                tsort.next_pow2(k + n), pad_key=pad_key)[0, :, :k].numpy()
+            w_keys, w_idw = want
+            w_marked = tsort.is_marked(torch.from_numpy(w_idw)).numpy()
+            w_cnt = k - int(((w_keys > tsort.key_of(-1e29)) & ~w_marked
+                             ).sum())
+            run_k = w_keys
+            run_i = tsort.strip_marks(torch.from_numpy(w_idw)).numpy()
+            keys, clean, cnt, model = _kernel_slot(
+                model, _words(new_k, new_iw)[new_i >= 0], k, cand_cap, tile)
+            np.testing.assert_array_equal(keys, w_keys)
+            np.testing.assert_array_equal(clean, run_i)
+            assert cnt == w_cnt
