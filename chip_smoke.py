@@ -45,10 +45,13 @@ a line of its own:
    ``serve_bulk`` batch (2 ``embedding_bag`` launches a call), each
    against the same forward from ``emb.sum(1)``; profiled calls of both;
 6. each kernel's time (CUDA events) beside its plain version, a library
-   yardstick the port never calls, and its bound; ``flash_attention``
-   (the prefill's 96 x 2,048 x 128 bf16) and ``embedding_bag`` (the bulk
-   batch on the DeepFM table) are held against their plain versions
-   there too; a profiled static and live serve.
+   yardstick the port never calls, and its bound; ``topk_merge`` at
+   probe 1, at a late probe and at the live pair's width (list rows and
+   the gated buffer columns), beside the launch floor (an empty
+   kernel); ``flash_attention`` (the prefill's 96 x 2,048 x 128 bf16)
+   and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
+   and D=1, its bound on 32-byte sectors) are held against their plain
+   versions there too; a profiled static and live serve.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -77,6 +80,9 @@ PRE_ADDS, PRE_DELETES = 1024, 256
 RECALL_GAP_MAX = 0.01          # the reference's make bench-smoke gate
 N_PROBE, TAU, DELTA, PHI = 80, 10, 7, 95.0
 N_DOCS, N_CLUSTERS, N_QUERIES = 1_000_000, 8192, 1024
+# the late-probe timing row: probe LATE_PROBE (0-based) of a search whose
+# mean probe count C is about 28 at these widths
+LATE_PROBE = 20
 # noise norm spread * sqrt(d) = 2, as the reference CLI's default corpus
 # (dim 64, spread 0.25); at spread 0.25 and d=768 noise drowns clusters
 SPREAD = 0.25 * math.sqrt(64 / 768)
@@ -453,14 +459,13 @@ def recsys_serve(ctx, cfg, *, p99_batch=RS_P99_BATCH, p99_calls=RS_P99_CALLS,
     return params, recsys._combined_ids(ids, cfg).contiguous()
 
 
-def model_zoo_timing(ctx, lm_cfg, table, rows):
+def model_zoo_timing(ctx, lm_cfg, table, linear_table, rows):
     """Timing rows of flash_attention (the prefill's shapes, random bf16)
-    and embedding_bag (the bulk batch on the DeepFM table), each first
-    held against its plain version on those inputs: its row's
-    ``max_abs_err``."""
+    and embedding_bag (the bulk batch on both DeepFM tables: D=10 and the
+    D=1 ``linear_table``), each first held against its plain version on
+    those inputs: its row's ``max_abs_err``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import embedding_bag as k_eb
     from repro_torch.kernels import flash_attention as k_fa
 
     heads, hd = lm_cfg.n_heads, lm_cfg.head_dim()
@@ -493,39 +498,71 @@ def model_zoo_timing(ctx, lm_cfg, table, rows):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:65",
         ms=ctx.time_call("flash_attention", lambda: k_fa.flash_attention(
-            q, k, v, causal=True), 10),
+            q, k, v, causal=True), 10, profiled=True),
         plain_ms=ctx.time_call("flash_attention plain",
                                lambda: k_fa.flash_attention_plain(
                                    q, k, v, causal=True), 5),
         bound=bound(n_bytes, flops, BF16_FLOPS_PER_S),
         library_ms=ctx.time_call("scaled_dot_product_attention", sdpa, 20))]
+    for tab, name in ((table, "embedding_bag"),
+                      (linear_table, "embedding_bag (linear_table)")):
+        rows_out.append(embedding_bag_row(ctx, tab, rows, name))
+    return rows_out
+
+
+def sector_bytes(rows_u, d, sector=32):
+    """Bytes of the distinct ``sector``-byte sectors that the distinct
+    rows ``rows_u`` of a (R, d) f32 table touch: the card reads whole
+    32-byte sectors, so a 40-byte row at offset 40 r spans two."""
+    import torch
+
+    start = rows_u.long() * (d * 4) // sector
+    end = (rows_u.long() * (d * 4) + d * 4 - 1) // sector
+    span = int((end - start).max()) + 1
+    sec = start[:, None] + torch.arange(span, device=rows_u.device)[None]
+    return int(torch.unique(sec[sec <= end[:, None]]).numel()) * sector
+
+
+def embedding_bag_row(ctx, table, rows, name):
+    """embedding_bag on ``table`` at the bulk batch's rows: held bit for
+    bit against its plain version, then timed beside it and beside
+    ``F.embedding_bag``; the bound reads the ids once, writes the output
+    once and reads the distinct 32-byte sectors of the distinct rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as k_eb
+
     b, f = rows.shape
     d = table.shape[1]
-    distinct = int(torch.unique(rows).numel())
-    n_bytes = b * f * 4 + b * d * 4 + distinct * d * 4
-    print(f"embedding_bag: {b} bags x {f} ids, D={d}: {distinct} distinct "
-          f"rows of {table.shape[0]}; {n_bytes} bytes")
+    distinct = torch.unique(rows)
+    row_bytes = sector_bytes(distinct, d)
+    n_bytes = b * f * 4 + b * d * 4 + row_bytes
+    old_bytes = b * f * 4 + b * d * 4 + int(distinct.numel()) * d * 4
+    bnd = bound(n_bytes, b * f * d, F32_FLOPS_PER_S)
+    print(f"{name}: {b} bags x {f} ids, D={d}: {int(distinct.numel())} "
+          f"distinct rows of {table.shape[0]} in {row_bytes} bytes of "
+          f"32-byte sectors; {n_bytes} bytes, bound {bnd[0]:.6f} ms "
+          f"({bnd[1]}); at {d * 4} bytes a distinct row instead "
+          f"{old_bytes} bytes, {old_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
     got = k_eb.embedding_bag(table, rows)
     ctx.sync()
     if not torch.equal(got, k_eb.embedding_bag_plain(table, rows)):
-        raise AssertionError("embedding_bag at the bulk batch's shapes: not "
-                             "bit-equal to its plain version")
-    ctx.max_err["embedding_bag"] = 0.0
-    print("embedding_bag at the bulk batch's shapes: bit-equal")
-    rows_out.append(dict(
-        name="embedding_bag", route="cuda",
+        raise AssertionError(f"{name} at the bulk batch's shapes: not "
+                             f"bit-equal to its plain version")
+    print(f"{name} at the bulk batch's shapes: bit-equal")
+    return dict(
+        name=name, counter="embedding_bag", route="cuda",
         source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="src/repro/kernels/embedding_bag.py:28",
-        ms=ctx.time_call("embedding_bag", lambda: k_eb.embedding_bag(
-            table, rows), 20),
-        plain_ms=ctx.time_call("embedding_bag plain",
+        replaces="src/repro/kernels/embedding_bag.py:28", max_abs_err=0.0,
+        ms=ctx.time_call(name, lambda: k_eb.embedding_bag(table, rows), 20,
+                         profiled=True),
+        plain_ms=ctx.time_call(f"{name} plain",
                                lambda: k_eb.embedding_bag_plain(table, rows),
                                5),
-        bound=bound(n_bytes, b * f * d, F32_FLOPS_PER_S),
-        library_ms=ctx.time_call("F.embedding_bag(mode='sum')",
+        bound=bnd,
+        library_ms=ctx.time_call(f"{name}: F.embedding_bag(mode='sum')",
                                  lambda: F.embedding_bag(rows, table,
-                                                         mode="sum"), 20)))
-    return rows_out
+                                                         mode="sum"), 20))
 
 
 def main() -> None:
@@ -608,14 +645,17 @@ def main() -> None:
                 for ev in prof.key_averages()
                 if ev.device_type == DeviceType.CUDA}
 
-    def time_call(name, fn, reps, profiled=True):
+    def time_call(name, fn, reps, profiled=False):
         """Median CUDA-event ms of one call, over ``reps`` calls after a
         warm-up.  Each call is queued behind a device-side sleep longer
         than the host takes to enqueue it, so the card never waits on
-        the host between a call's two events.  The profiler's (CUPTI)
-        device time of the same calls is printed beside it, unless not
-        ``profiled`` (the timing phase's diagnostic lines, which are no
-        kernel's row: the run keeps its profiler sessions few)."""
+        the host between a call's two events.  With ``profiled`` (a
+        kernel's own row and the launch floor) the profiler's (CUPTI)
+        device time of the same calls is printed beside it; plain
+        versions, library yardsticks and diagnostic lines are timed by
+        events only, so the run keeps its profiler sessions few (a run
+        that profiled every timed call once saw no device time in one of
+        its last sessions)."""
         for _ in range(3):
             fn()
         sync()
@@ -1094,6 +1134,7 @@ def main() -> None:
                                ["ivf_scan", "delta_scan", "topk_merge"],
                                absent=["ivf_scan_merge",
                                        "ivf_scan_merge+delta"])
+        live_pair_launches = counts["topk_merge"]
         if counts["delta_scan"] != 1:
             raise AssertionError("the pair search scanned the buffer "
                                  f"{counts['delta_scan']} times, not once")
@@ -1150,10 +1191,11 @@ def main() -> None:
             + torch.arange(LIST_PAD, device=dev)
         new_s = k_scan.ivf_scan(qb, index.docs, bo1, list_pad=LIST_PAD,
                                 blk_l=BLK_L)
-        new_i = index.doc_ids[rows1].contiguous()
+        # the strip as core.ivf's _probe_rows gives it to the pair search:
+        # id -1 past the list's size, -inf wherever the id is -1
         live = torch.arange(LIST_PAD, device=dev)[None] < sz[:, 1:2]
-        new_s = torch.where(live & (new_i >= 0), new_s,
-                            float("-inf")).contiguous()
+        new_i = torch.where(live, index.doc_ids[rows1], -1).contiguous()
+        new_s = torch.where(new_i >= 0, new_s, float("-inf")).contiguous()
 
         def unique_live_rows(c):
             u = torch.unique(c)
@@ -1177,27 +1219,87 @@ def main() -> None:
             source="src/repro_torch/csrc/ivf_scan.cu",
             replaces="src/repro/kernels/ivf_scan.py:28",
             ms=time_call("ivf_scan", lambda: k_scan.ivf_scan(
-                qb, index.docs, bo1, list_pad=LIST_PAD, blk_l=BLK_L), 50),
+                qb, index.docs, bo1, list_pad=LIST_PAD, blk_l=BLK_L), 50,
+                profiled=True),
             plain_ms=time_call("ivf_scan plain", lambda: k_scan.ivf_scan_plain(
                 qb, index.docs, bo1, list_pad=LIST_PAD, blk_l=BLK_L), 20),
             bound=bnd,
             library_ms=time_call("gather + torch.bmm", lambda: torch.bmm(
                 index.docs[rows1], qb[:, :, None]), 20)))
+
+        def topk_merge_row(name, rs, ri, ns, ni, n_launches):
+            """topk_merge on one running top-k and strip: bit-equal to its
+            plain version first, then timed beside it and ``torch.topk``;
+            the bound reads both once and writes the top-k once."""
+            g = k_tm.topk_merge(rs, ri, ns, ni, K)
+            sync()
+            w = k_tm.topk_merge_plain(rs, ri, ns, ni, K)
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+                raise AssertionError(f"{name}: not bit-equal")
+            # the columns a filter by the running k-th record keeps: score
+            # above it, or equal with a higher id (-inf is the sentinel)
+            def sentinel(x):
+                return torch.where(torch.isfinite(x), x, -1e30)
+
+            ks, ki = sentinel(rs[:, K - 1:K]), ri[:, K - 1:K]
+            above = (sentinel(ns) > ks) | ((sentinel(ns) == ks) & (ni > ki))
+            print(f"{name}: k0={rs.shape[1]}, L={ns.shape[1]}; columns above "
+                  f"the running k-th record a row: mean "
+                  f"{float(above.sum(1).float().mean()):.2f}, max "
+                  f"{int(above.sum(1).max())}, finite "
+                  f"{float(torch.isfinite(ns).sum(1).float().mean()):.2f}; "
+                  f"bit-equal to its plain version")
+            cat = torch.cat([rs, ns], 1)
+            return dict(
+                name=name, counter="topk_merge", route="cuda",
+                source="src/repro_torch/csrc/topk_merge.cu",
+                replaces="src/repro/kernels/topk_merge.py:42",
+                launches=n_launches, max_abs_err=0.0,
+                ms=time_call(name, lambda: k_tm.topk_merge(rs, ri, ns, ni, K),
+                             50, profiled=True),
+                plain_ms=time_call(f"{name} plain",
+                                   lambda: k_tm.topk_merge_plain(
+                                       rs, ri, ns, ni, K), 20),
+                bound=bound(B * (K + ns.shape[1]) * 8 + B * K * 8, 0),
+                library_ms=time_call(f"{name}: torch.topk",
+                                     lambda: torch.topk(cat, K, dim=1), 20))
+
+        # a late probe: the running top-k after LATE_PROBE probes (one
+        # fused launch over them from empty) and probe LATE_PROBE's strip,
+        # where few candidates beat a full running top-k
+        cids_l = rank[:, :LATE_PROBE + 1]
+        sl, il, _ = k_sm.ivf_scan_merge(
+            qb, index.docs, ids2d,
+            (index.cluster_offsets[cids_l[:, :LATE_PROBE]] // BLK_L)
+            .reshape(-1).contiguous(),
+            index.cluster_sizes[cids_l[:, :LATE_PROBE]].reshape(-1)
+            .contiguous(), empty_s, empty_i, k=K, list_pad=LIST_PAD,
+            chunk=LATE_PROBE, blk_l=BLK_L)
+        run_s_late = sl[:, -1].contiguous()
+        run_i_late = il[:, -1].contiguous()
+        bo_l = (index.cluster_offsets[cids_l[:, -1]] // BLK_L).contiguous()
+        live_l = torch.arange(LIST_PAD, device=dev)[None] \
+            < index.cluster_sizes[cids_l[:, -1]][:, None]
+        new_i_late = torch.where(live_l, index.doc_ids[
+            bo_l.long()[:, None] * BLK_L
+            + torch.arange(LIST_PAD, device=dev)], -1).contiguous()
+        new_s_late = torch.where(
+            new_i_late >= 0,
+            k_scan.ivf_scan(qb, index.docs, bo_l, list_pad=LIST_PAD,
+                            blk_l=BLK_L), float("-inf")).contiguous()
+
         # topk_merge: running top-k after probe 0 with probe 1's strip
-        bnd = bound(B * (K + LIST_PAD) * 8 + B * K * 8, 0)
-        cat_s = torch.cat([run_s, new_s], 1)
-        rows.append(dict(
-            name="topk_merge", route="cuda",
-            source="src/repro_torch/csrc/topk_merge.cu",
-            replaces="src/repro/kernels/topk_merge.py:42",
-            ms=time_call("topk_merge", lambda: k_tm.topk_merge(
-                run_s, run_i, new_s, new_i, K), 50),
-            plain_ms=time_call(
-                "topk_merge plain", lambda: k_tm.topk_merge_plain(
-                    run_s, run_i, new_s, new_i, K), 20),
-            bound=bnd,
-            library_ms=time_call("torch.topk", lambda: torch.topk(
-                cat_s, K, dim=1), 20)))
+        rows.append(topk_merge_row("topk_merge", run_s, run_i, new_s, new_i,
+                                   launches["topk_merge"]))
+        floor_ms = time_call("launch floor (an empty kernel)",
+                             lambda: _build.launch("launch_floor", dev), 50,
+                             profiled=True)
+        print(f"timing: launch floor {floor_ms:.6f} ms beside topk_merge's "
+              f"bound {rows[1]['bound'][0]:.6f} ms and its time "
+              f"{rows[1]['ms']:.6f} ms")
+        rows.append(topk_merge_row(
+            "topk_merge (late probe)", run_s_late, run_i_late, new_s_late,
+            new_i_late, launches["topk_merge"]))
         # ivf_scan_merge: the first wave's first chunk
         live_c = unique_live_rows(cids)
         bnd = bound(B * D * 4 + live_c * (D * 4 + 4) + B * K * 8
@@ -1208,12 +1310,14 @@ def main() -> None:
             replaces="src/repro/kernels/ivf_scan_merge.py:212",
             ms=time_call("ivf_scan_merge", lambda: k_sm.ivf_scan_merge(
                 qb, index.docs, ids2d, boffs, szf, empty_s, empty_i, k=K,
-                list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L), 50),
+                list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L), 50,
+                profiled=True),
             plain_ms=time_call(
                 "ivf_scan_merge plain", lambda: k_sm.ivf_scan_merge_plain(
                     qb, index.docs, ids2d, boffs, szf, empty_s, empty_i,
                     k=K, list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L), 10),
             bound=bnd, library_ms=None))
+        fused_ms = rows[-1]["ms"]
         print(f"timing inputs: ivf_scan {live1} live rows of "
               f"{B * LIST_PAD} tile rows; ivf_scan_merge {live_c} unique "
               f"live rows, {int(szf.sum())} live rows summed over the "
@@ -1230,12 +1334,12 @@ def main() -> None:
                 boffs.view(B, CHUNK)[top].contiguous(),
                 szf.view(B, CHUNK)[top].contiguous(), empty_s[:1],
                 empty_i[:1], k=K, list_pad=LIST_PAD, chunk=CHUNK,
-                blk_l=BLK_L), 50, profiled=False)
+                blk_l=BLK_L), 50)
         print(f"ivf_scan_merge rows per query: mean "
               f"{float(per_q.float().mean()):.1f}, median "
               f"{float(per_q.float().median()):.1f}, max {int(per_q.max())}; "
               f"the query with the most rows alone {ms_top:.6f} ms, the "
-              f"wave {rows[2]['ms']:.6f} ms")
+              f"wave {fused_ms:.6f} ms")
         stages = k_sm.ring_stages(D, K, CHUNK, LIST_PAD, True,
                                   _build.max_shared_optin(dev))
         smem = k_sm.smem_bytes(D, K, CHUNK, LIST_PAD, stages)
@@ -1267,7 +1371,7 @@ def main() -> None:
             source="src/repro_torch/csrc/delta_scan.cu",
             replaces="src/repro/kernels/delta_scan.py:31",
             ms=time_call("delta_scan", lambda: k_ds.delta_scan(qb, bvecs),
-                         50),
+                         50, profiled=True),
             plain_ms=time_call("delta_scan plain",
                                lambda: k_ds.delta_scan_plain(qb, bvecs), 10),
             bound=bnd,
@@ -1298,7 +1402,7 @@ def main() -> None:
                          lambda: k_sm.ivf_scan_merge(
                              qb, index.docs, ids2d, boffs, szf, empty_s,
                              empty_i, k=K, list_pad=LIST_PAD, chunk=CHUNK,
-                             blk_l=BLK_L, **stream), 50),
+                             blk_l=BLK_L, **stream), 50, profiled=True),
             plain_ms=time_call(
                 "ivf_scan_merge+delta plain",
                 lambda: k_sm.ivf_scan_merge_plain(
@@ -1309,7 +1413,7 @@ def main() -> None:
         print(f"timing inputs: delta buffer {n_buf} live slots of {CAP}; "
               f"ivf_scan_merge+delta gates {gated} buffer entries over "
               f"{B * CHUNK} slots; without the stream on the same tiles "
-              f"{rows[2]['ms']:.6f} ms")
+              f"{fused_ms:.6f} ms")
         # the stream's fixed cost: the same launch with every gate at -2
         # (the buffer's assigns are read, nothing is gated)
         no_gate = dict(stream, gate_cids=torch.full_like(
@@ -1318,14 +1422,26 @@ def main() -> None:
             "ivf_scan_merge+delta, every gate -2",
             lambda: k_sm.ivf_scan_merge(
                 qb, index.docs, ids2d, boffs, szf, empty_s, empty_i, k=K,
-                list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L, **no_gate), 50,
-            profiled=False)
+                list_pad=LIST_PAD, chunk=CHUNK, blk_l=BLK_L, **no_gate), 50)
         print(f"timing: ivf_scan_merge+delta with every gate at -2 "
               f"{ms_no_gate:.6f} ms; without the stream "
-              f"{rows[2]['ms']:.6f} ms; with the stream "
+              f"{fused_ms:.6f} ms; with the stream "
               f"{rows[-1]['ms']:.6f} ms")
+        # topk_merge at the live per-probe pair's width: probe slot 1's
+        # strip and the buffer's CAP columns, gated as core.ivf's
+        # delta_candidates gates them (entries assigned to the probed
+        # cluster keep their scores, the rest are -inf with id -1)
+        gate = (bids >= 0)[None, :] & (bassign[None, :] == cids[:, 1:2])
+        wide_s = torch.cat([new_s, torch.where(
+            gate, k_ds.delta_scan(qb, bvecs), float("-inf"))], 1).contiguous()
+        wide_i = torch.cat([new_i, torch.where(
+            gate, bids[None, :].expand(B, -1), -1)], 1).contiguous()
+        rows.append(topk_merge_row(
+            "topk_merge (live pair width)", run_s, run_i, wide_s, wide_i,
+            live_pair_launches))
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
-                                 rs_params["table"], rs_rows)
+                                 rs_params["table"],
+                                 rs_params["linear_table"], rs_rows)
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:
@@ -1397,11 +1513,14 @@ def main() -> None:
 
     kernels = []
     for r in rows:
+        # a row of a kernel at another shape names the kernel's counter
         bound_ms, bound_by = r.pop("bound")
+        counter = r.get("counter", r["name"])
         kernels.append({**{k_: r[k_] for k_ in ("name", "route", "source",
                                                  "replaces")},
-                        "launches": launches[r["name"]],
-                        "max_abs_err": max_err[r["name"]],
+                        "launches": r.get("launches", launches[counter]),
+                        "max_abs_err": r.get("max_abs_err",
+                                             max_err[counter]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": r["library_ms"]})

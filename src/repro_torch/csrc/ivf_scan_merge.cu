@@ -55,7 +55,8 @@
 //   merged by binary search: running lane i lands at i + #{survivors
 //   above it}, the r-th survivor at r + #{running lanes at or above it},
 //   and ranks below k are the new top-k (equal records are identical, so
-//   the bits are the merge's).  A slot with no survivor writes the
+//   the bits are the merge's; packed_sort.cuh's merge, which topk_merge
+//   runs too).  A slot with no survivor writes the
 //   running top-k unchanged.  Marks are stripped at the slot's end; where
 //   that puts two equal-key records out of packed order, the running
 //   top-k is re-ranked within its equal-key groups (the snapshot keeps
@@ -211,79 +212,10 @@ __device__ __forceinline__ void dot2(const float (&qr)[kQReg],
   s1 = a1;
 }
 
-// the number of records of sorted (descending) v[0, n) above x, or at
-// or above x when `or_equal`
-__device__ __forceinline__ int count_above(const long long* v, int n,
-                                           long long x, bool or_equal) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (v[mid] > x || (or_equal && v[mid] == x)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// merge the nb survivors cand[0, nb) into the sorted running top-k (the
-// consumer threads, nb the same in each, every one past its last read of
-// *n_surv; ends with a barrier and leaves *n_surv at 0).  The survivors
-// are ranked among themselves into bsort (equal ones by position); then
-// running lane i lands at i + #{survivors above it} and survivor r at
-// r + #{running lanes at or above it}, both by binary search, and the
-// ranks below k are the new top-k.  Records are totally ordered and
-// equal records are identical, so the bits are any exact merge's.
-__device__ void merge(long long* run, long long* tmp, const long long* cand,
-                      long long* bsort, int nb, int* n_surv, int k) {
-  for (int j = threadIdx.x; j < nb; j += kConsumers) {
-    const long long c = cand[j];
-    int pos = 0;
-#pragma unroll 8
-    for (int i = 0; i < nb; ++i) {
-      const long long o = cand[i];
-      pos += (o > c) | ((o == c) & (i < j));
-    }
-    bsort[pos] = c;
-  }
-  csync();
-  for (int x = threadIdx.x; x < k + nb; x += kConsumers) {
-    if (x < k) {
-      const long long a = run[x];
-      const int pos = x + count_above(bsort, nb, a, false);
-      if (pos < k) tmp[pos] = a;
-    } else {
-      const long long c = bsort[x - k];
-      const int pos = x - k + count_above(run, k, c, true);
-      if (pos < k) tmp[pos] = c;
-    }
-  }
-  csync();
-  for (int i = threadIdx.x; i < k; i += kConsumers) run[i] = tmp[i];
-  if (threadIdx.x == 0) *n_surv = 0;
-  csync();
-}
-
-// consumer-wide compaction in thread order: threads with `found` write
-// `value` to out; returns the count in every consumer thread.  Two
-// barriers; wsum is read only before the second, so calls may follow
-// each other without another barrier.
-__device__ __forceinline__ int compact(bool found, int value, int* out,
-                                       int* wsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned m = __ballot_sync(0xffffffffu, found);
-  if (lane == 0) wsum[warp] = __popc(m);
-  csync();
-  int off = 0, n = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    off += w < warp ? wsum[w] : 0;
-    n += wsum[w];
-  }
-  if (found) out[off + __popc(m & ((1u << lane) - 1u))] = value;
-  csync();
-  return n;
-}
+// the consumer warps' barrier as the packed:: merge helpers take it
+struct ConsumerSync {
+  __device__ __forceinline__ void operator()() const { csync(); }
+};
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
@@ -415,15 +347,7 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
   __syncthreads();   // with the producer: setup done
   // the merge needs the running top-k in packed order: rank the incoming
   // records (equal ones by position; the caller's may tie out of order)
-  for (int x = tid; x < k; x += kConsumers) {
-    const long long a = run[x];
-    int pos = 0;
-    for (int y = 0; y < k; ++y) {
-      const long long o = run[y];
-      pos += (o > a) | ((o == a) & (y < x));
-    }
-    tmp[pos] = a;
-  }
+  packed::rank<kConsumers>(run, tmp, k);
   csync();
   for (int t = tid; t < k; t += kConsumers) run[t] = tmp[t];
 
@@ -490,7 +414,8 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
   auto score_gated = [&](int n) {
     for (int g0 = 0; g0 < n; g0 += kTileRows) {
       if (n_surv + kTileRows > cand_cap(list_pad)) {
-        merge(run, tmp, cand, bsort, n_surv, &n_surv_s, k);
+        packed::merge<kConsumers>(run, tmp, cand, bsort, n_surv, &n_surv_s, k,
+                                  ConsumerSync{});
         n_surv = 0;
       }
       const int xa = g0 + warp, xb = g0 + warp + kWarps;
@@ -538,7 +463,8 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
         // every match of this slot is in the list (kList == kConsumers)
         const int x = tid;
         const bool mine = x < min(n_list, kList) && list_j[x] == j;
-        score_gated(compact(mine, mine ? list_e[x] : 0, gbuf, wsum));
+        score_gated(packed::compact<kConsumers>(
+            mine, mine ? list_e[x] : 0, gbuf, wsum, ConsumerSync{}));
       } else {
         // rescan the buffer in windows of kList entries
         const int gate = gate_s[j];
@@ -546,12 +472,14 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
           const int e = w0 + tid;
           const bool mine = e < cap && __ldg(dassign + e) == gate &&
                             __ldg(dids + e) >= 0;
-          score_gated(compact(mine, e, gbuf, wsum));
+          score_gated(packed::compact<kConsumers>(mine, e, gbuf, wsum,
+                                                    ConsumerSync{}));
         }
       }
     }
     if (n_surv > 0) {
-      merge(run, tmp, cand, bsort, n_surv, &n_surv_s, k);
+      packed::merge<kConsumers>(run, tmp, cand, bsort, n_surv, &n_surv_s, k,
+                                  ConsumerSync{});
       n_surv = 0;
     }
     // lanes still NEW-marked entered on this probe; empty slots count as

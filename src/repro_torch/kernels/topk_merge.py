@@ -1,11 +1,13 @@
-"""Top-k merge: the packed bitonic network over (running-k ++ new-L).
+"""Top-k merge: the first k of (running-k ++ new-L) in packed order.
 
 Port of ``repro.kernels.topk_merge``.  On a CUDA tensor the wrapper
-launches ``csrc/topk_merge.cu`` (past 48 KB of records by the kernel's
-shared-memory opt-in, up to the card's limit); on a CPU tensor it runs
-:func:`topk_merge_plain`.  Non-finite scores become the -1e30 sentinel
-before the sort, and sentinel scores come back as -inf, so empty slots
-match the plain per-probe merge exactly.
+launches ``csrc/topk_merge.cu``, a filtered rank merge whose shared
+memory grows with k only (:func:`smem_bytes`), so any L fits; on a CPU
+tensor it runs :func:`topk_merge_plain`, the reference's packed sort
+over all ``next_pow2(k0 + L)`` records.  Non-finite scores become the
+-1e30 sentinel first, and scores at or below -1e29 come back as -inf,
+so empty slots match the plain per-probe merge exactly.  The kernel
+writes the -inf itself: a call is one launch.
 """
 from __future__ import annotations
 
@@ -16,11 +18,14 @@ import torch
 from repro_torch.kernels import _build, sort
 
 NEG = -1e30
+# survivors the kernel holds between merges (csrc/topk_merge.cu: kBuf)
+BUF = 512
 
 
-def _to_neg_inf(out_s: torch.Tensor) -> torch.Tensor:
-    # the network runs on the -1e30 sentinel; map it back to -inf
-    return torch.where(out_s > -1e29, out_s, float("-inf"))
+def smem_bytes(k: int) -> int:
+    """The kernel's dynamic shared memory for top-k ``k``: the running
+    top-k and its merge scratch, the survivors and their ranks."""
+    return 16 * (k + BUF)
 
 
 def topk_merge_plain(scores: torch.Tensor, ids: torch.Tensor,
@@ -34,7 +39,9 @@ def topk_merge_plain(scores: torch.Tensor, ids: torch.Tensor,
     # NaN/±inf clamp BEFORE the key map, so NaNs cannot sort above +inf
     s = torch.where(torch.isfinite(s), s, NEG)
     out = sort.bitonic_desc_packed(sort.pack(sort.score_to_key(s), i))
-    return _to_neg_inf(sort.key_to_score(out[:, 0, :k])), out[:, 1, :k]
+    # the network runs on the -1e30 sentinel; map it back to -inf
+    top = sort.key_to_score(out[:, 0, :k])
+    return torch.where(top > -1e29, top, float("-inf")), out[:, 1, :k]
 
 
 def topk_merge(scores: torch.Tensor, ids: torch.Tensor,
@@ -54,8 +61,7 @@ def topk_merge(scores: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"topk_merge: k={k} outside (0, {m_pad}]")
     if dev.type == "cpu":
         return topk_merge_plain(scores, ids, new_scores, new_ids, k)
-    _build.check_smem("topk_merge", dev, m_pad * 8,
-                      f"k0={k0} + L={n_new} columns ({m_pad} records)")
+    _build.check_smem("topk_merge", dev, smem_bytes(k), f"k={k}")
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b:
@@ -64,7 +70,7 @@ def topk_merge(scores: torch.Tensor, ids: torch.Tensor,
                       out_s.data_ptr(), out_i.data_ptr(), b, k0, n_new, k,
                       m_pad)
         topk_merge.launches += 1
-    return _to_neg_inf(out_s), out_i
+    return out_s, out_i
 
 
 topk_merge.launches = 0

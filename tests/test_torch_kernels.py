@@ -78,6 +78,55 @@ def _merge_inputs(seed, b=4, k=10, L=30):
     return s, i, ns, ni, k
 
 
+def topk_case(name, rows=3):
+    """(s, i, ns, ni, k) of a named edge of topk_merge, ``rows`` rows: the
+    cases of the kernel's CPU model (tests/test_torch_sort.py) and of
+    its gpu test below."""
+    rng = np.random.default_rng(TOPK_CASES.index(name))
+    k0, n_new, k = {"k0_above_k": (100, 256, 10), "k_above_k0": (10, 30, 50),
+                    "pads_reach_output": (10, 20, 32),
+                    "ids_below_minus_one": (100, 28, 100), "L1": (100, 1, 100),
+                    "L4452": (100, 4452, 100),
+                    "tiles_overflow_buffer": (100, 4452, 100)
+                    }.get(name, (100, 256, 100))
+    s = -np.sort(-rng.integers(-3, 4, (rows, k0)).astype(np.float32), 1)
+    i = rng.integers(0, 60, (rows, k0)).astype(np.int32)
+    ns = rng.integers(-3, 4, (rows, n_new)).astype(np.float32)
+    ni = rng.integers(0, 60, (rows, n_new)).astype(np.int32)
+    if name == "unsorted_with_holes":      # _scrub_dead's -inf holes
+        hole = rng.random((rows, k0)) < 0.2
+        s[hole], i[hole] = -np.inf, -1
+    if name == "non_finite":               # NaN and ±inf with real ids
+        for x in (s, ns):
+            x[:, ::7], x[:, 3::11], x[:, 5::13] = np.nan, np.inf, -np.inf
+    if name == "ids_below_minus_one":      # rank under the pad records
+        ns[:, ::2], ni[:, ::2] = -np.inf, -5
+        ns[:, 1::4] = -1e31
+        s[:, -20:], i[:, -20:] = -np.inf, -7
+    if name == "duplicates":               # records repeated everywhere
+        ns[:, :k0], ni[:, :k0] = s, i
+        ns[:, k0:2 * k0], ni[:, k0:2 * k0] = s, i
+    if name == "all_equal":
+        s[:], ns[:] = 0.5, 0.5
+    if name == "L256_gaussian":
+        s = -np.sort(-rng.normal(size=(rows, k0)).astype(np.float32), 1)
+        ns = rng.normal(size=(rows, n_new)).astype(np.float32)
+        i = rng.permutation(rows * k0).reshape(rows, k0).astype(np.int32)
+    if name == "L4452":                    # the live pair: gated columns
+        gate = rng.random((rows, n_new)) < 0.05
+        ns, ni = np.where(gate, ns, -np.inf), np.where(gate, ni, -1)
+    if name == "tiles_overflow_buffer":    # ascending: every tile survives
+        ns = np.sort(rng.normal(size=(rows, n_new)).astype(np.float32), 1)
+        s[:] = -np.inf
+    return s, i, ns, ni.astype(np.int32), k
+
+
+TOPK_CASES = ["k0_above_k", "k_above_k0", "pads_reach_output",
+               "unsorted_with_holes", "non_finite", "ids_below_minus_one",
+               "duplicates", "all_equal", "L1", "L256_gaussian", "L4452",
+               "tiles_overflow_buffer"]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_topk_merge_plain_matches_reference(ref, seed):
     jnp = ref.jnp
@@ -187,11 +236,16 @@ def test_gpu_ivf_scan_matches_plain(cuda):
 
 @pytest.mark.gpu
 def test_gpu_topk_merge_matches_plain(cuda):
-    for seed in (0, 1):
-        s, i, ns, ni, k = _merge_inputs(seed, b=64, k=100, L=256)
+    """Bit-equal to the plain version on the pair search's shape and on
+    every edge of the kernel's CPU model, one launch a call."""
+    cases = [_merge_inputs(seed, b=64, k=100, L=256) for seed in (0, 1)]
+    cases += [topk_case(name, rows=16) for name in TOPK_CASES]
+    for s, i, ns, ni, k in cases:
         s, i, ns, ni = _to(cuda, s, i, ns, ni)
+        before = t_tm.topk_merge.launches
         got = t_tm.topk_merge(s, i, ns, ni, k)
         torch.cuda.synchronize()
+        assert t_tm.topk_merge.launches == before + 1
         want = t_tm.topk_merge_plain(s, i, ns, ni, k)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -520,9 +574,17 @@ def test_gpu_topk_merge_wide_matches_plain(cuda):
 
 @pytest.mark.gpu
 def test_gpu_wrappers_raise_past_the_shared_memory_limit(cuda):
+    """topk_merge's shared memory grows with k only: 40,000 columns merge
+    bit for bit as the plain version does, and a k whose running top-k
+    does not fit the card's shared memory raises."""
     s, i, ns, ni, k = _merge_inputs(4, b=4, k=100, L=40_000)
+    s, i, ns, ni = _to(cuda, s, i, ns, ni)
+    got = t_tm.topk_merge(s, i, ns, ni, k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, t_tm.topk_merge_plain(s, i, ns, ni, k)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError, match="the card allows"):
-        t_tm.topk_merge(*_to(cuda, s, i, ns, ni), k)
+        t_tm.topk_merge(s, i, ns, ni, 20_000)
 
 
 # -- the model zoo's kernels: flash_attention and embedding_bag ---------------
@@ -717,15 +779,36 @@ def test_gpu_flash_attention_bf16_refuses_misaligned_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 10, 16])
-@pytest.mark.parametrize("f", [1, 39])
-def test_gpu_embedding_bag_matches_plain(cuda, d, f):
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("d", [1, 3, 10, 16])
+@pytest.mark.parametrize("f", [1, 39, 40])
+def test_gpu_embedding_bag_matches_plain(cuda, d, f, shift):
+    """Bit-equal at every vector width the kernel picks (D 1, 3: scalars;
+    10: float2; 16: float4), on a table view ``shift`` floats into its
+    storage (4 and 8 bytes break the 16- and 8-byte loads), a B that is
+    no multiple of any tile, and ids that start unaligned in each tile."""
     rng = np.random.default_rng(d * 100 + f)
     table = rng.normal(size=(5000, d)).astype(np.float32)
     ids = rng.integers(0, 5000, (777, f)).astype(np.int32)
     table, ids = _to(cuda, table, ids)
+    flat = torch.zeros(table.numel() + shift, device=cuda)
+    flat[shift:] = table.reshape(-1)
+    table = flat[shift:].view(5000, d)
     before = t_eb.embedding_bag.launches
     got = t_eb.embedding_bag(table, ids)
     torch.cuda.synchronize()
     assert t_eb.embedding_bag.launches == before + 1
+    assert torch.equal(got, t_eb.embedding_bag_plain(table, ids))
+
+
+@pytest.mark.gpu
+def test_gpu_embedding_bag_unstaged_bags_match_plain(cuda):
+    """Bags whose ids alone pass the kernel's 48 KB of staged ids read
+    them from global memory: bit-equal all the same."""
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=(3000, 10)).astype(np.float32)
+    ids = rng.integers(0, 3000, (5, 13_000)).astype(np.int32)
+    table, ids = _to(cuda, table, ids)
+    got = t_eb.embedding_bag(table, ids)
+    torch.cuda.synchronize()
     assert torch.equal(got, t_eb.embedding_bag_plain(table, ids))

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 
 from repro.kernels import sort as jsort
 from repro_torch.kernels import sort as tsort
+from test_torch_kernels import TOPK_CASES, topk_case
 
 _EDGE = np.float32([0.0, -0.0, 1e-44, -1e-44, 1e-40, -1e-40, np.inf,
                     -np.inf, -1e30, -1e29, 1e30, -3.5, 3.5])
@@ -189,3 +190,89 @@ def test_filtered_merge_matches_merge_packed(k, n, cand_cap, tile):
             np.testing.assert_array_equal(keys, w_keys)
             np.testing.assert_array_equal(clean, run_i)
             assert cnt == w_cnt
+
+
+# -- csrc/topk_merge.cu's algorithm, modelled on the CPU ----------------------
+
+_FREE = np.iinfo(np.int64).min       # the kernel's free slot: below every record
+_PAD = int(_words(np.int32(tsort.key_of(-1e30)), np.int32(-1)))
+
+
+def _records(scores, ids):
+    """The kernel's packed words: non-finite scores clamped to -1e30."""
+    s = np.where(np.isfinite(scores), scores, np.float32(-1e30))
+    keys = tsort.score_to_key(torch.from_numpy(s.astype(np.float32))).numpy()
+    return _words(keys, ids.astype(np.int32))
+
+
+def _topk_merge_model(s, i, ns, ni, k, *, tile=256, buf=512,
+                      key_only=False, k_pads=False):
+    """One row of the topk_merge kernel on int64 words: the first
+    min(k0, k) running records, ranked only if out of packed order;
+    min(k, m_pad - k0 - L) pad records placed by count; the remaining
+    running records and the new ones streamed ``tile`` at a time, those
+    strictly above the running k-th kept in a ``buf`` buffer that is
+    merged by rank when another tile could overflow it and at the end;
+    sentinel-range scores written as -inf.  ``key_only`` and ``k_pads``
+    are the two faults the tests below must catch: a filter on keys alone,
+    and k pads whatever the reference pads with."""
+    k0, n_new = len(s), len(ns)
+    m_pad = tsort.next_pow2(k0 + n_new)
+    kr = min(k0, k)
+    run = np.full(k, _FREE, np.int64)
+    run[:kr] = _records(s[:kr], i[:kr])
+    if (run[:kr][:-1] < run[:kr][1:]).any():
+        run[:kr] = _kernel_rank(run[:kr], kr)
+    n_pad = k if k_pads else min(k, m_pad - k0 - n_new)
+    at = int((run[:kr] >= _PAD).sum())
+    run = np.concatenate([run[:at], np.full(n_pad, _PAD, np.int64),
+                          run[at:]])[:k]
+    stream = np.concatenate([_records(s[kr:], i[kr:]), _records(ns, ni)])
+    kept = []
+    for t0 in range(0, len(stream), tile):
+        if len(kept) + tile > buf:
+            run, kept = _rank_merge(run, np.asarray(kept, np.int64), k), []
+        x = stream[t0:t0 + tile]
+        keep = (x >> 32) > (run[k - 1] >> 32) if key_only else x > run[k - 1]
+        kept += list(x[keep])
+    if kept:
+        run = _rank_merge(run, np.asarray(kept, np.int64), k)
+    keys = (run >> 32).astype(np.int32)
+    idw = ((run & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
+    out = tsort.key_to_score(torch.from_numpy(keys)).numpy()
+    return np.where(out > np.float32(-1e29), out, -np.inf), idw
+
+
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_topk_merge_kernel_model_matches_plain_and_reference(name):
+    """csrc/topk_merge.cu's filtered rank merge gives the packed network's
+    bits: against topk_merge_plain and the Pallas kernel (interpret
+    mode)."""
+    from repro.kernels import topk_merge as jtm
+    from repro_torch.kernels import topk_merge as ttm
+
+    s, i, ns, ni, k = topk_case(name)
+    ps, pi = ttm.topk_merge_plain(*map(torch.from_numpy, (s, i, ns, ni)), k)
+    js, ji = jtm.topk_merge(*map(jnp.asarray, (s, i, ns, ni)), k,
+                            interpret=True)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    for r in range(len(s)):
+        ms, mi = _topk_merge_model(s[r], i[r], ns[r], ni[r], k)
+        np.testing.assert_array_equal(ms, ps[r].numpy())
+        np.testing.assert_array_equal(mi, pi[r].numpy())
+
+
+@pytest.mark.parametrize("fault,name", [("key_only", "all_equal"),
+                                        ("key_only", "k0_above_k"),
+                                        ("k_pads", "ids_below_minus_one")])
+def test_topk_merge_kernel_model_catches_faults(fault, name):
+    """The cases above would catch a filter on keys alone and k pad
+    records in place of min(k, m_pad - k0 - L)."""
+    from repro_torch.kernels import topk_merge as ttm
+
+    s, i, ns, ni, k = topk_case(name)
+    _, pi = ttm.topk_merge_plain(*map(torch.from_numpy, (s, i, ns, ni)), k)
+    assert any(not np.array_equal(
+        _topk_merge_model(s[r], i[r], ns[r], ni[r], k, **{fault: True})[1],
+        pi[r].numpy()) for r in range(len(s)))
