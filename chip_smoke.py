@@ -28,6 +28,16 @@ a line of its own:
    serve 1,024 queries through the wave scheduler (one fused
    ``ivf_scan_merge`` launch per chunk), and check it against fused
    ``search``, the per-probe kernel pair and brute force;
+3b. the learned exit stages on that index (``learned_train``,
+   ``learned_search``, ``learned_fused_vs_pair``, ``learned_features``):
+   the four forests of Table 2 (30 trees, depth 5) trained on 2,048
+   queries of their own (validated on 512) at N=80, tau=10, w=3; the
+   eight Table-2 strategies on the 1,024 served queries through the
+   fused kernel (R*@1, R*@k, mRR@10, C, wall, speedup, launches; every
+   learned query's probes within [tau, N], +Patience's C at most the
+   weighted classifier's); both cascades' fused search against the
+   kernel pair, and the features built offline against the online ones
+   at tau and across batch sizes, bit for bit;
 4. the live index on that index (``LiveIndex``, delta capacity 4,096):
    1,024 adds and 256 deletes before serving, then the same 1,024
    queries served through a version registry while every wave adds 64
@@ -565,6 +575,251 @@ def embedding_bag_row(ctx, table, rows, name):
                                                          mode="sum"), 20))
 
 
+# -- the learned exit stages: REG, classifier and cascades (Table 2) ---------
+# Their own train / valid queries over the served corpus (the served
+# queries' mix, from the corpus's own component centres), the forests of
+# table2's --quick mode at the paper's point, then the eight Table-2
+# strategies on the 1,024 served queries through the fused kernel.
+
+LEARNED_TRAIN, LEARNED_VALID, LEARNED_SEED = 2048, 512, 1
+LEARNED_TREES, LEARNED_DEPTH, EXIT_W = 30, 5, 3.0
+def learned_exit(ctx, index, corpus, queries, docs_t, exact, *,
+                 n_probe=N_PROBE, k=K, tau=TAU, delta=DELTA, phi=PHI,
+                 n_train=LEARNED_TRAIN, n_valid=LEARNED_VALID,
+                 n_trees=LEARNED_TREES, max_depth=LEARNED_DEPTH,
+                 pair_queries=256, feature_block=128, spread=SPREAD,
+                 timed_calls=5):
+    """Phases ``learned_train``, ``learned_search``,
+    ``learned_fused_vs_pair`` and ``learned_features``: train the four
+    forests, run Table 2's eight strategies on ``queries`` through the
+    fused kernel (one ``ivf_scan_merge`` launch per chunk of 4 probes;
+    the median wall of ``timed_calls`` after a warm one; A-kNN and
+    +Patience once more under the profiler),
+    hold both cascades' fused search against the kernel pair, and hold
+    the features built offline against the online ones and across batch
+    sizes, bit for bit.  Returns the printed rows."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.table2 import strategies
+    from repro_torch.core import extract_features, metrics, search
+    from repro_torch.core.training import train_policy_models
+    from repro_torch.data.synthetic import component_centers, query_mix
+    from repro_torch.kernels import delta_scan as k_ds
+
+    with ctx.phase("learned_train"):
+        centres = component_centers(n_docs=N_DOCS, dim=D,
+                                    n_components=N_CLUSTERS, seed=0)
+        qs = query_mix(np.random.default_rng(LEARNED_SEED), corpus.docs,
+                       centres, n_train + n_valid, spread=spread)
+        t0 = time.perf_counter()
+        pm = train_policy_models(
+            index, docs_t, qs[:n_train], qs[n_train:], n_probe=n_probe, k=k,
+            tau=tau, exit_weight=EXIT_W, n_trees=n_trees,
+            max_depth=max_depth)
+        ctx.sync()
+        total = time.perf_counter() - t0
+        y = pm.labels_train
+        print(json.dumps(dict(
+            train_queries=n_train, valid_queries=n_valid, n_probe=n_probe,
+            k=k, tau=tau, exit_weight=EXIT_W, trees_asked=n_trees,
+            max_depth=max_depth, seconds=total,
+            **{f"{part}_s": sec for part, sec in pm.seconds.items()},
+            exit_fraction_train=float(np.mean(y <= tau)),
+            label_mean_train=float(y.mean()),
+            trees={name: getattr(pm, name).n_trees for name in
+                   ("reg", "reg_int", "clf", "clf_weighted")})))
+
+    # Table 2's eight strategies, named as table2 names them
+    pols = strategies(n_probe, pm, delta, k=k, tau=tau, phi=phi,
+                      exit_w=EXIT_W)
+    pat = f"+Patience(d={delta})"
+    clf_w = f"Classifier(w={EXIT_W:.0f})"
+    rows, results = [], {}
+    with ctx.phase("learned_search"):
+        base_ms = None
+
+        def run(pol):
+            return search(index, queries, pol, use_fused_kernel=True,
+                          chunk=CHUNK)
+
+        for name, pol in pols.items():
+            # a warm call, then timed calls (the median is the row's
+            # wall); the first timed call's launches are read
+            run(pol)
+            walls = []
+            for rep in range(timed_calls):
+                ctx.sync()
+                if rep == 0:
+                    ctx.reset()
+                t0 = time.perf_counter()
+                res = run(pol)
+                ctx.sync()
+                walls.append((time.perf_counter() - t0) * 1000)
+                if rep == 0:
+                    counts = ctx.read(
+                        f"learned search {name}", ["ivf_scan_merge"],
+                        absent=["ivf_scan", "topk_merge",
+                                "ivf_scan_merge+delta"])
+            wall = float(np.median(walls))
+            if counts["delta_scan"] != (1 if pol.learned else 0):
+                raise AssertionError(f"{name}: {counts['delta_scan']} "
+                                     f"delta_scan launches (the centroid "
+                                     f"sims of a learned policy: 1)")
+            probes = res.probes.cpu().numpy()
+            summ = metrics.summarize(res.topk_ids.cpu().numpy(), probes,
+                                     exact, corpus.relevant, wall)
+            base_ms = base_ms or wall
+            row = {"strategy": name, **{m: summ[m] for m in (
+                "R*@1", "R*@k", "mRR@10", "C")}, "wall_ms": wall,
+                "Sp": base_ms / wall,
+                "wall_ms_each": walls,
+                "ivf_scan_merge_launches": counts["ivf_scan_merge"],
+                "delta_scan_launches": counts["delta_scan"],
+                "min_probes": int(probes.min()),
+                "max_probes": int(probes.max())}
+            print(json.dumps(row))
+            if pol.learned and not (tau <= probes.min()
+                                    and probes.max() <= n_probe):
+                raise AssertionError(f"{name}: a query's probes lie outside "
+                                     f"[{tau}, {n_probe}]")
+            if res.features is None and pol.learned:
+                raise AssertionError(f"{name}: no features at tau")
+            rows.append(row)
+            results[name] = res
+        c = {r["strategy"]: r["C"] for r in rows}
+        if c[pat] > c[clf_w]:
+            raise AssertionError(f"{pat}'s C {c[pat]} exceeds {clf_w}'s "
+                                 f"{c[clf_w]}")
+        print(f"learned C within [{tau}, {n_probe}] for every query; "
+              f"{pat}'s C <= {clf_w}'s (the same weighted trees)")
+        for name in (f"A-kNN95(N={n_probe})", pat):
+            ctx.profile(f"search {name} ({queries.shape[0]} queries, "
+                        f"fused)", lambda: run(pols[name]))
+
+    with ctx.phase("learned_fused_vs_pair"):
+        q = queries[:pair_queries]
+        for name in ("+Reg+int", pat):
+            fused = search(index, q, pols[name], use_fused_kernel=True,
+                           chunk=CHUNK)
+            ctx.reset()
+            pair = search(index, q, pols[name], use_scan_kernel=True,
+                          use_topk_kernel=True)
+            ctx.sync()
+            ctx.read(f"learned search {name} (kernel pair)",
+                     ["ivf_scan", "topk_merge"],
+                     absent=["ivf_scan_merge", "ivf_scan_merge+delta"])
+            for f in ("topk_ids", "probes", "topk_scores", "features"):
+                if not torch.equal(getattr(fused, f), getattr(pair, f)):
+                    raise AssertionError(f"{name}: fused != kernel pair on "
+                                         f"{f}")
+            print(f"{name}: fused == per-probe kernel pair bit for bit on "
+                  f"{q.shape[0]} queries (ids, probes, scores, features; "
+                  f"C={fused.probes.float().mean().item():.4f})")
+
+    with ctx.phase("learned_features"):
+        # delta_scan at the shapes the learned path gives it: the centroid
+        # sims of a whole batch and of one block (queries x N_CLUSTERS),
+        # on the served queries and on integer inputs (bit-equal)
+        r = np.random.default_rng(5)
+
+        def ints(shape):
+            return torch.from_numpy(
+                r.integers(-2, 3, shape).astype(np.float32)).to(ctx.dev)
+
+        int_q, int_c = ints(tuple(queries.shape)), ints(
+            tuple(index.centroids.shape))
+        for rows_ in (queries.shape[0], feature_block):
+            for label, q_, c_ in (("integer", int_q, int_c),
+                                  ("served", queries, index.centroids)):
+                got = k_ds.delta_scan(q_[:rows_], c_)
+                ctx.sync()
+                want = k_ds.delta_scan_plain(q_[:rows_], c_)
+                err = float((got - want).abs().max())
+                if label == "integer" and not torch.equal(got, want):
+                    raise AssertionError(f"delta_scan ({label}, {rows_} x "
+                                         f"{c_.shape[0]}): not bit-equal")
+                if not err <= ATOL:
+                    raise AssertionError(f"delta_scan ({label}, {rows_} x "
+                                         f"{c_.shape[0]}): err {err}")
+                ctx.max_err["delta_scan"] = max(ctx.max_err["delta_scan"],
+                                                err)
+                print(f"delta_scan ({label} centroid sims, {rows_} x "
+                      f"{c_.shape[0]} x {c_.shape[1]}): max_abs_err {err}")
+        whole = extract_features(index, queries, tau=tau, k=k)
+        parts = torch.cat([extract_features(index,
+                                            queries[s: s + feature_block],
+                                            tau=tau, k=k)
+                           for s in range(0, queries.shape[0],
+                                          feature_block)])
+        ctx.sync()
+        if not torch.equal(whole, parts):
+            raise AssertionError(
+                f"extract_features differs between one call and calls of "
+                f"{feature_block}: {int((whole != parts).any(1).sum())} rows")
+        for name, res in results.items():
+            if pols[name].learned and not torch.equal(res.features, whole):
+                raise AssertionError(f"{name}: the features at tau differ "
+                                     f"from extract_features'")
+        print(f"extract_features: one call of {queries.shape[0]} == "
+              f"{queries.shape[0] // feature_block} calls of "
+              f"{feature_block} == the features every learned search read "
+              f"at tau, bit for bit ({tuple(whole.shape)})")
+    return rows
+
+
+def table2_smoke(ctx):
+    """Phase ``table2_smoke``: the port's Table-2 entry point,
+    ``table2.main(smoke=True)``, on the card (its substrate cached and
+    its JSON written in a temporary directory): every strategy through
+    the fused kernel, the artifact naming the backend, the card and its
+    power limit, and Table 2's eight rows."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import common, table2
+
+    with ctx.phase("table2_smoke"), \
+            tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH_table2_torch.json")
+        cache, common.CACHE = common.CACHE, os.path.join(tmp, "cache")
+        try:
+            ctx.reset()
+            rows = table2.main(smoke=True, out=out)
+            ctx.sync()
+        finally:
+            common.CACHE = cache
+        counts = ctx.read("table2.main(smoke=True)", ["ivf_scan_merge"],
+                          absent=["ivf_scan", "topk_merge",
+                                  "ivf_scan_merge+delta"])
+        # not named above, so delta_scan's row keeps the live pair's count
+        if counts["delta_scan"] <= 0:
+            raise AssertionError("table2: no per-row centroid sims "
+                                 "(delta_scan) in a learned search")
+        with open(out) as f:
+            art = json.load(f)
+        name, limit = (x.strip() for x in card_line().rsplit(",", 1))
+        want = dict(backend="cuda", device=torch.cuda.get_device_name(0),
+                    power_limit=limit)
+        got = {key: art.get(key) for key in want}
+        if got != want:
+            raise AssertionError(f"table2 artifact names {got}, not {want}")
+        if len(art["rows"]) != 8 or art["rows"] != json.loads(
+                json.dumps(rows)):
+            raise AssertionError(f"table2 artifact holds "
+                                 f"{len(art['rows'])} rows, not the 8 "
+                                 f"returned")
+        for r in art["rows"]:
+            if not all(np.isfinite(r[m]) and r[m] >= 0 for m in (
+                    "R*@1", "mRR@10", "C", "T_ms", "Sp")) or r["C"] < 1:
+                raise AssertionError(f"table2 row {r}")
+            print(json.dumps({m: r[m] for m in (
+                "strategy", "R*@1", "mRR@10", "C", "T_ms", "Sp")}))
+        print(f"table2.main(smoke=True) on {name} ({limit}): "
+              f"{len(rows)} rows, artifact {sorted(art)}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
@@ -1020,7 +1275,11 @@ def main() -> None:
         print(f"full-probe search == brute force on 32 queries (max score "
               f"err {err}, near-tie id swaps {swaps})")
 
-    # -- 4. the live index ------------------------------------------------------
+    # -- 3b. the learned exit stages ------------------------------------------
+    learned_exit(ctx, index, corpus, queries, docs_t, exact)
+    table2_smoke(ctx)
+
+    # -- 4. the live index ----------------------------------------------------
     def fresh_live():
         """A LiveIndex over ``index`` after the pre-serve burst: PRE_ADDS
         noisy copies of corpus docs added, PRE_DELETES main docs deleted.

@@ -23,6 +23,8 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import kmeans as km
+from repro_torch.core.features import (FeatureExtras, base_columns,
+                                       feature_matrix)
 from repro_torch.core.policies import Policy, policy_step
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.delta_scan import delta_scan_plain
@@ -199,6 +201,9 @@ class SearchResult(NamedTuple):
     topk_ids: torch.Tensor
     probes: torch.Tensor          # (B,) int32
     phi_hist: torch.Tensor        # (B, tau-1) — for diagnostics/benchmarks
+    # (B, F) Table-1 features with intersections that a learned policy's
+    # stages read at tau (None for fixed and patience)
+    features: Optional[torch.Tensor] = None
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,6 +211,26 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     (``torch.topk`` promises no tie order)."""
     s, i = torch.sort(x, dim=-1, descending=True, stable=True)
     return s[..., :k], i[..., :k].to(torch.int32)
+
+
+def centroid_rank(index: IVFIndex, queries: torch.Tensor, n_rank: int, *,
+                  per_row: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, n_rank) centroid sims in probe order and the clusters they
+    name.
+
+    ``per_row`` scores the centroids through ``delta_scan`` (each sim
+    reduced on its own: the kernel's ``row_dot`` order on the card,
+    ``score_rows`` on the CPU), so a query's sims, its probe order and
+    its Table-1 group-2 features have the same bits whatever batch it
+    rides in.  The learned stages need that: their trees are trained on
+    features built in other batches.  Otherwise one matmul scores them,
+    and its reduction order may depend on the batch's shape."""
+    if per_row:
+        sims = kops.delta_scan(queries, index.centroids)
+    else:
+        sims = queries @ index.centroids.T
+    return top_k(sims, n_rank)
 
 
 def intersection_pct(a_ids: torch.Tensor, b_ids: torch.Tensor
@@ -278,11 +303,18 @@ def search(index: IVFIndex, queries, policy: Policy, *,
 
     ``chunk`` probes are advanced per loop iteration; the exit policy
     is still evaluated at per-probe granularity, so results and probe
-    counts equal ``chunk=1`` for every policy.  ``use_scan_kernel`` /
+    counts equal ``chunk=1`` for every policy (a learned stage fires on
+    the exact probe ``tau`` even inside a chunk).  ``use_scan_kernel`` /
     ``use_topk_kernel`` route each probe through the ``ivf_scan`` and
     ``topk_merge`` kernels; ``use_fused_kernel`` routes each chunk
     through one ``ivf_scan_merge`` launch, and phi comes from its
     per-probe new-entry counts.
+
+    A learned policy (REG, classifier, cascade) ranks the centroids by
+    ``centroid_rank(per_row=True)`` and reads the Table-1 features at
+    ``tau`` (returned as ``SearchResult.features``), built by the same
+    slot update as ``extract_features``'s.  Its trees must lie on the
+    index's device.
 
     ``delta`` (live index, ``repro_torch.index``): a fixed-capacity
     buffer of recently added vectors, on the index's device.  It is
@@ -295,9 +327,28 @@ def search(index: IVFIndex, queries, policy: Policy, *,
     the delta docs in those lists.  Tombstoned docs carry id -1 and are
     masked on every path.
     """
+    return _search(index, queries, policy, delta=delta,
+                   use_scan_kernel=use_scan_kernel,
+                   use_topk_kernel=use_topk_kernel,
+                   use_fused_kernel=use_fused_kernel, chunk=chunk,
+                   blk_l=blk_l, device=device, features=policy.learned)
+
+
+def _search(index: IVFIndex, queries, policy: Policy, *,
+            delta: Optional[DeltaView], use_scan_kernel: bool,
+            use_topk_kernel: bool, use_fused_kernel: bool, chunk: int,
+            blk_l: int, device: DeviceLike, features: bool) -> SearchResult:
+    """``search``; with ``features`` the centroids are ranked per row,
+    phi against RS_1 is kept while it is recorded (probes 2..tau), and
+    the Table-1 matrix is built after probe ``min(tau, n_rank)``."""
     dev = index_device(index, device)
     if delta is not None:
         check_same_device(dev, "the delta view", *delta)
+    for tree in (policy.reg, policy.clf):
+        if tree is not None:
+            check_same_device(dev, "a tree of the policy", tree.feat,
+                              tree.thresh, tree.left, tree.right,
+                              tree.value, tree.base)
     if use_fused_kernel or use_scan_kernel:
         # the kernels trust blk_l-aligned offsets: fail loudly up front
         validate_alignment(index, blk_l=blk_l)
@@ -308,8 +359,10 @@ def search(index: IVFIndex, queries, policy: Policy, *,
     chunk = max(1, min(chunk, n_rank))
     lp = index.list_pad
 
-    _, cluster_rank = top_k(queries @ index.centroids.T, n_rank)  # (B, N)
+    rank_sims, cluster_rank = centroid_rank(index, queries, n_rank,
+                                            per_row=features)  # (B, N)
     cluster_rank = cluster_rank.long()
+    centroid_sims = rank_sims[:, :tau]
 
     if delta is not None and not use_fused_kernel:
         # one scan of the whole buffer; each entry is *merged* only at
@@ -338,29 +391,46 @@ def search(index: IVFIndex, queries, policy: Policy, *,
 
     topk_scores = torch.full((B, k), float("-inf"), device=dev)
     topk_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
-    phi_hist = torch.zeros((B, max(tau - 1, 1)), device=dev)
+    hist_w = max(tau - 1, 1)
+    phi_hist = torch.zeros((B, hist_w), device=dev)
+    phi1_hist = torch.zeros((B, hist_w), device=dev)
+    rs1_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
     patience_ctr = torch.zeros(B, dtype=torch.int32, device=dev)
+    target = torch.full((B,), N, dtype=torch.int32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     probes = torch.zeros(B, dtype=torch.int32, device=dev)
-    hist_cols = torch.arange(phi_hist.shape[1], device=dev)
+    hist_cols = torch.arange(hist_w, device=dev)
+    at_tau = min(tau, n_rank) - 1       # the probe the features describe
+    fm = None
 
     def slot_update(h, m_s, m_i, phi_pre):
         """One probe's state transition given its merged top-k and, on
         the fused path, the kernel-derived phi (None -> recompute)."""
-        nonlocal topk_scores, topk_ids, phi_hist, patience_ctr, active, \
-            probes
+        nonlocal topk_scores, topk_ids, phi_hist, phi1_hist, rs1_ids, \
+            patience_ctr, target, active, probes, fm
         act = active[:, None]
         new_ids = torch.where(act, m_i, topk_ids)
         phi = intersection_pct(topk_ids, new_ids) if phi_pre is None \
             else phi_pre
         topk_scores = torch.where(act, m_s, topk_scores)
         topk_ids = new_ids
+        if features and h == 0:
+            rs1_ids = torch.where(act, topk_ids, rs1_ids)
         # record stability history rows h-1 in [0, tau-2]
         if 1 <= h <= tau - 1:
             upd = (hist_cols == h - 1)[None, :] & act
             phi_hist = torch.where(upd, phi[:, None], phi_hist)
-        exit_, patience_ctr = policy_step(policy, h=h, phi=phi,
-                                          patience_ctr=patience_ctr)
+            if features:
+                phi1 = intersection_pct(rs1_ids, topk_ids)
+                phi1_hist = torch.where(upd, phi1[:, None], phi1_hist)
+        if features and h == at_tau:
+            fm = feature_matrix(FeatureExtras(
+                queries=queries, centroid_sims=centroid_sims,
+                topk_scores=topk_scores, phi_hist=phi_hist,
+                phi1_hist=phi1_hist), with_intersections=True)
+        exit_, patience_ctr, target = policy_step(
+            policy, h=h, phi=phi, patience_ctr=patience_ctr, target=target,
+            features=fm)
         exit_now = active & exit_ & (h + 1 >= policy.min_probes)
         probes = torch.where(active, h + 1, probes)
         active = active & ~exit_now & (h + 1 < n_rank)
@@ -399,7 +469,34 @@ def search(index: IVFIndex, queries, policy: Policy, *,
                                        new_ids, k, use_topk_kernel)
                 slot_update(h, m_s, m_i, None)
                 h += 1
-    return SearchResult(topk_scores, topk_ids, probes, phi_hist)
+    return SearchResult(topk_scores, topk_ids, probes, phi_hist, fm)
+
+
+# the path ``extract_features`` builds its features on; on the card the
+# fused kernel's scores equal the kernel pair's bit for bit (and differ
+# from the plain per-probe path's), and the chunk changes no bit
+FEATURE_CHUNK = 4
+
+
+def extract_features(index: IVFIndex, queries, *, tau: int, k: int,
+                     with_intersections: bool = True,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Run exactly ``tau`` probes and build the Table-1 feature matrix.
+
+    The probes run through ``search``'s own loop on the fused kernel
+    (one ``ivf_scan_merge`` launch per ``FEATURE_CHUNK`` probes), with
+    the centroids ranked per row, so offline (training) features equal
+    the online (serving) features at ``tau`` bit for bit, whatever the
+    batch sizes of the two.  With ``with_intersections=False`` the
+    matrix stops before the two history blocks (REG's groups 1-3).
+    """
+    res = _search(index, queries, Policy(k=k, n_probe=tau, tau=tau,
+                                         name="features"),
+                  delta=None, use_scan_kernel=False, use_topk_kernel=False,
+                  use_fused_kernel=True, chunk=FEATURE_CHUNK, blk_l=64,
+                  device=device, features=True)
+    return res.features if with_intersections else \
+        base_columns(res.features, tau)
 
 
 def brute_force(docs: torch.Tensor, queries: torch.Tensor, k: int
@@ -408,16 +505,18 @@ def brute_force(docs: torch.Tensor, queries: torch.Tensor, k: int
     return top_k(queries @ docs.T, k)
 
 
-def probe_trace(index: IVFIndex, queries, n_probe: int, k: int
-                ) -> Tuple[np.ndarray, np.ndarray]:
+def probe_trace(index: IVFIndex, queries, n_probe: int, k: int, *,
+                per_row: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """Reference (non-exiting) scan returning the full top-k trajectory:
     ids after every probe h=1..N. Used for C(q) labels, Figure 1 and
-    policy oracles. Returns (ids_traj (N,B,k), phi (N-1,B))."""
+    policy oracles. Returns (ids_traj (N,B,k), phi (N-1,B)).
+    ``per_row`` ranks the centroids as a learned policy's search does
+    (``centroid_rank``)."""
     dev = index_device(index)
     queries = _as_queries(queries, dev)
     B = queries.shape[0]
     n = min(n_probe, index.n_clusters)
-    _, cluster_rank = top_k(queries @ index.centroids.T, n)
+    _, cluster_rank = centroid_rank(index, queries, n, per_row=per_row)
     scores = torch.full((B, k), float("-inf"), device=dev)
     ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
     traj, phi = [], []

@@ -29,17 +29,57 @@ class Corpus:
     relevant: np.ndarray   # (n_q,) int32 — "human label" doc per query
 
 
-def clustered_corpus(n_docs: int = 100_000, dim: int = 128,
-                     n_components: int = 512, n_queries: int = 4096,
-                     *, spread: float = 0.25, hard_frac: float = 0.35,
-                     seed: int = 0) -> Corpus:
-    rng = np.random.default_rng(seed)
-    # power-law component sizes (Zipf s=1.1)
+def _components(rng: np.random.Generator, n_docs: int, n_components: int,
+                dim: int):
+    """Zipf (s=1.1) component sizes and unit component centres."""
     w = 1.0 / np.arange(1, n_components + 1) ** 1.1
     w /= w.sum()
     sizes = rng.multinomial(n_docs, w)
     centers = rng.normal(0, 1, (n_components, dim)).astype(np.float32)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    return sizes, centers
+
+
+def component_centers(n_docs: int = 100_000, dim: int = 128,
+                      n_components: int = 512, *, seed: int = 0
+                      ) -> np.ndarray:
+    """The unit centres ``clustered_corpus`` draws with these arguments
+    (its generator replayed as far as the centres), for more queries of
+    the same mix by ``query_mix``."""
+    return _components(np.random.default_rng(seed), n_docs, n_components,
+                       dim)[1]
+
+
+def query_mix(rng: np.random.Generator, docs: np.ndarray,
+              centers: np.ndarray, n_queries: int, *, spread: float,
+              hard_frac: float = 0.35) -> np.ndarray:
+    """``n_queries`` unit queries in random order: easy ones are noisy
+    copies of docs, hard ones interpolate between two component centres
+    plus noise."""
+    dim = docs.shape[1]
+    n_hard = int(n_queries * hard_frac)
+    n_easy = n_queries - n_hard
+    # easy: perturbed docs (1-NN almost surely in the home cluster)
+    src = rng.integers(0, docs.shape[0], n_easy)
+    easy = docs[src] + rng.normal(0, 0.15 * spread, (n_easy, dim))
+    # hard: interpolations between two components + noise
+    c1 = rng.integers(0, centers.shape[0], n_hard)
+    c2 = rng.integers(0, centers.shape[0], n_hard)
+    t = rng.random((n_hard, 1)).astype(np.float32)
+    hard = centers[c1] * t + centers[c2] * (1 - t) + \
+        rng.normal(0, spread, (n_hard, dim))
+    queries = np.concatenate([easy, hard]).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    perm = rng.permutation(n_queries)
+    return queries[perm]
+
+
+def clustered_corpus(n_docs: int = 100_000, dim: int = 128,
+                     n_components: int = 512, n_queries: int = 4096,
+                     *, spread: float = 0.25, hard_frac: float = 0.35,
+                     seed: int = 0) -> Corpus:
+    rng = np.random.default_rng(seed)
+    sizes, centers = _components(rng, n_docs, n_components, dim)
     scales = (0.5 + rng.random(n_components)) * spread
     docs = np.empty((n_docs, dim), np.float32)
     pos = 0
@@ -49,22 +89,8 @@ def clustered_corpus(n_docs: int = 100_000, dim: int = 128,
         docs[pos: pos + s] = centers[c] + rng.normal(0, scales[c], (s, dim))
         pos += s
     docs /= np.linalg.norm(docs, axis=1, keepdims=True)
-
-    n_hard = int(n_queries * hard_frac)
-    n_easy = n_queries - n_hard
-    # easy: perturbed docs (1-NN almost surely in the home cluster)
-    src = rng.integers(0, n_docs, n_easy)
-    easy = docs[src] + rng.normal(0, 0.15 * spread, (n_easy, dim))
-    # hard: interpolations between two components + noise
-    c1 = rng.integers(0, n_components, n_hard)
-    c2 = rng.integers(0, n_components, n_hard)
-    t = rng.random((n_hard, 1)).astype(np.float32)
-    hard = centers[c1] * t + centers[c2] * (1 - t) + \
-        rng.normal(0, spread, (n_hard, dim))
-    queries = np.concatenate([easy, hard]).astype(np.float32)
-    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
-    perm = rng.permutation(n_queries)
-    queries = queries[perm]
+    queries = query_mix(rng, docs, centers, n_queries, spread=spread,
+                        hard_frac=hard_frac)
     return Corpus(docs, queries, relevant_docs(queries, docs))
 
 

@@ -39,7 +39,10 @@ def test_port_source_imports_no_jax_or_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.core.serving,"
             " repro_torch.index, repro_torch.models.transformer,"
-            " repro_torch.models.recsys, repro_torch.configs;"
+            " repro_torch.models.recsys, repro_torch.configs,"
+            " repro_torch.trees, repro_torch.core.training,"
+            " repro_torch.benchmarks.table2, repro_torch.benchmarks.figure1,"
+            " repro_torch.benchmarks.clabel_dist;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -81,6 +84,25 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         relayout(arrays[1][:8], np.arange(8), np.zeros(8, np.int32),
                  arrays[0], list_pad=64)
+
+
+def test_learned_stage_entry_points_need_a_card_or_an_explicit_cpu(
+        no_card, tmp_path, monkeypatch):
+    from repro_torch.benchmarks import common, table2
+    from repro_torch.trees import ensemble_from_arrays
+
+    arrays = ([[0, -1, -1]], [[0.5, 0.0, 0.0]], [[1, 1, 2]], [[2, 1, 2]],
+              [[0.0, 1.0, -1.0]], 0.0, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ensemble_from_arrays(*arrays)
+    assert ensemble_from_arrays(*arrays, device="cpu").feat.device.type \
+        == "cpu"
+    monkeypatch.setattr(common, "CACHE", str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        common.load_bench("star-like", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table2.main(smoke=True, out=str(tmp_path / "t2.json"))
+    assert not list(tmp_path.iterdir())
 
 
 def _numpy_tree(tree):

@@ -141,8 +141,3 @@ def test_validate_alignment_rejects_misaligned_lists(t_index):
     with pytest.raises(ValueError, match="not blk_l"):
         search(bad, np.zeros((1, t_index.dim), np.float32),
                policies.fixed(4, k=10), use_fused_kernel=True)
-
-
-def test_learned_policies_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="learned-policy slice"):
-        policies.Policy(use_reg=True)

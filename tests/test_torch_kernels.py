@@ -363,7 +363,7 @@ def test_ivf_scan_merge_delta_arguments_come_together():
             chunk=chunk, delta_vecs=T(dvecs), delta_ids=T(dids))
 
 
-# -- on the card: the live index's kernels -------------------------------------
+# -- on the card: the live index's kernels ------------------------------------
 
 
 @pytest.mark.gpu
@@ -812,3 +812,44 @@ def test_gpu_embedding_bag_unstaged_bags_match_plain(cuda):
     got = t_eb.embedding_bag(table, ids)
     torch.cuda.synchronize()
     assert torch.equal(got, t_eb.embedding_bag_plain(table, ids))
+
+
+# -- on the card: the learned stages' features --------------------------------
+
+
+@pytest.mark.gpu
+def test_gpu_extract_features_are_batch_independent(cuda):
+    """``extract_features`` on the card: one call over 384 queries equals
+    calls of 128, 96 and 1 rows bit for bit (centroid sims by the
+    ``delta_scan`` kernel, probes by the fused kernel), and equals the
+    features a learned search read at tau on the fused path and on the
+    kernel pair."""
+    from repro_torch.core import (build_index, extract_features, policies,
+                                  search)
+    from repro_torch.data.synthetic import clustered_corpus
+    from repro_torch.trees import ensemble_from_arrays
+
+    c = clustered_corpus(n_docs=20_000, dim=64, n_components=96,
+                         n_queries=384, seed=3)
+    index = build_index(c.docs, 96, list_pad=256, n_iters=4, device=cuda)
+    q = torch.from_numpy(c.queries).to(cuda)
+    tau, k = 10, 100
+    whole = extract_features(index, q, tau=tau, k=k)
+    for block in (128, 96, 1):
+        parts = torch.cat([extract_features(index, q[s: s + block],
+                                            tau=tau, k=k)
+                           for s in range(0, q.shape[0], block)])
+        assert torch.equal(parts, whole), block
+    # a one-split stump on feature 0: half the queries exit at tau
+    stump = ensemble_from_arrays(
+        [[0, -1, -1]], [[float(whole[:, 0].median())] * 3], [[1, 1, 2]],
+        [[2, 1, 2]], [[0.0, 1.0, -1.0]], 0.0, 1, device=cuda)
+    pol = policies.cascade_patience(40, stump, 7, 95.0, k=k, tau=tau)
+    fused = search(index, q, pol, use_fused_kernel=True, chunk=4)
+    pair = search(index, q, pol, use_scan_kernel=True, use_topk_kernel=True)
+    torch.cuda.synchronize()
+    for res in (fused, pair):
+        assert torch.equal(res.features, whole)
+    for f in ("topk_ids", "probes", "topk_scores"):
+        assert torch.equal(getattr(fused, f), getattr(pair, f)), f
+    assert (fused.probes == tau).any() and (fused.probes > tau).any()

@@ -7,8 +7,8 @@ under this JAX (ROADMAP Queue 3, R1).  Across packages ids, probe
 counts and every int or bool array are equal, scores agree within 1e-5
 and phi history within 1e-4.  Inside the port, live search on every
 path equals search over ``rebuild_equivalent()`` bit for bit.  The
-learned cascade policy of the reference's live tests waits for the
-learned-policy slice.
+learned cascades with a delta view are held against the reference in
+tests/test_torch_policies.py.
 """
 import numpy as np
 import pytest
