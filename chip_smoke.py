@@ -61,7 +61,24 @@ a line of its own:
    kernel); ``flash_attention`` (the prefill's 96 x 2,048 x 128 bf16)
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
    and D=1, its bound on 32-byte sectors) are held against their plain
-   versions there too; a profiled static and live serve.
+   versions there too; a profiled static and live serve;
+7. durability on the main path's index, after the profiled phases: the
+   live serve of 4 with a mutation WAL (group commit 8 records / 50
+   ms), a snapshot manager (``keep=1``) in a temporary directory and a
+   background rebuild requested every 16 waves (the reference CLI's
+   ``--rebuild-every 16``; a 65,536-slot buffer holds the rebuild's
+   spill) until the first one publishes: every rebuild stage a tick
+   between waves, the rebuild published and drained mid-serve, recall
+   against the static serve; then ``IndexRegistry.recover`` from the
+   snapshot and the log, bit for bit the serving index (state, and the
+   fused path and the kernel pair), which answers bit for bit as its
+   from-scratch re-layout; every kernel that reads the buffer against
+   its plain version on the serving index's own buffer; the six
+   rebuild failpoints crashed and recovered on a
+   65,536-document corpus at d=768, each bit for bit the no-rebuild or
+   the rebuilt state, and a drift tracker triggered by shifted adds and
+   rebased by the rebuild it requests; ``kernel_bench.main()`` on the
+   card, its JSON held to ``make bench-smoke``'s schema.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -103,6 +120,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 ATOL = 1e-5
+# profiler sessions a profiled timing row may take to record device time
+PROFILE_TRIES = 5
 # ~20 ms at the H100's clock: longer than the host takes to enqueue any
 # timed call, the plain versions included
 SLEEP_CYCLES = 40_000_000
@@ -119,6 +138,41 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def finite_err(a, b):
+    """Max |a - b| over the entries finite in both, which must be the
+    same entries."""
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError("non-finite entries differ")
+    return float((a - b)[both].abs().max()) if both.any() else 0.0
+
+
+def near_tie_swaps(gs, gi, ws, wi, what):
+    """Scores agree position by position within ATOL, and every id
+    that differs is a near tie: it stands in the other list at a score
+    within ATOL, or it is missing there and its score is within ATOL
+    of that list's last one.  Returns (differing ids, max score err)."""
+    err = finite_err(gs, ws)
+    if err > ATOL:
+        raise AssertionError(f"{what}: scores differ by {err}")
+    diff = gi != wi
+
+    def near(a, b):
+        return (a == b) | ((a - b).abs() <= ATOL)
+
+    for xs, xi, ys, yi in ((gs, gi, ws, wi), (ws, wi, gs, gi)):
+        same = xi[..., :, None] == yi[..., None, :]
+        found = (same & near(xs[..., :, None], ys[..., None, :])).any(-1)
+        at_cut = ~same.any(-1) & near(xs, ys[..., -1:])
+        bad = diff & ~found & ~at_cut
+        if bad.any():
+            raise AssertionError(f"{what}: {int(bad.sum())} ids differ "
+                                 f"and are not near ties")
+    return int(diff.sum()), err
 
 
 def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -820,6 +874,662 @@ def table2_smoke(ctx):
               f"{len(rows)} rows, artifact {sorted(art)}")
 
 
+# -- durability: a live serve with a WAL, snapshots and rebuilds --------------
+# Module-level like the model-zoo phases, so they can be rehearsed on the
+# CPU with a CPU ctx and small sizes.
+
+REBUILD_EVERY = 16             # the reference CLI's --rebuild-every
+# the durable serve's delta buffer, a departure from the live cell's
+# 4,096 slots and not a deployment setting: retrain keeps the cluster
+# count and splits nothing, so a rebuild of this cut spills 6,354
+# entries past list_pad into the candidate's buffer, and more with each
+# further rebuild (an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); past the
+# buffer's capacity the reference's rule raises (ROADMAP R4, open)
+DURABLE_CAP = 65_536
+# the crash drills' corpus: the widths stay, the scale is cut (list sizes
+# stay those of the full cell: 65,536 / 512 = 1M / 8,192 docs a cluster)
+DRILL_DOCS, DRILL_CLUSTERS = 65_536, 512
+DRILL_SHIFT = 1.0              # norm of the drift drill's shift (docs: 1)
+DRILL_ITERS = 2                # the drills' Lloyd steps a retrain
+
+
+def first_chunk(index, qb):
+    """The fused kernel wrapper's inputs for the first CHUNK probes of the
+    queries ``qb`` on ``index``, from an empty running top-k: every
+    cluster ranked by similarity (B, n_clusters), the probed lists' sizes
+    (B, CHUNK), their offsets in BLK_L blocks (B * CHUNK,), the ids as
+    (rows / BLK_L, BLK_L) padded with -1, and the empty top-k."""
+    import torch
+
+    _, rank = torch.sort(qb @ index.centroids.T, dim=1, descending=True,
+                         stable=True)
+    cids = rank[:, :CHUNK]
+    sz = index.cluster_sizes[cids].contiguous()
+    boffs = (index.cluster_offsets[cids] // BLK_L).reshape(-1).contiguous()
+    tail = (-index.doc_ids.shape[0]) % BLK_L
+    ids2d = torch.nn.functional.pad(index.doc_ids, (0, tail),
+                                    value=-1).reshape(-1, BLK_L)
+    n = qb.shape[0]
+    empty_s = torch.full((n, K), float("-inf"), device=qb.device)
+    empty_i = torch.full((n, K), -1, dtype=torch.int32, device=qb.device)
+    return rank, sz, boffs, ids2d, empty_s, empty_i
+
+
+class Rebuilt:
+    """Search a live index's from-scratch re-layout (no buffer): the
+    rebuild-equivalence oracle, an answer the buffer's kernels do not
+    compute."""
+
+    def __init__(self, live):
+        self.index = live.rebuild_equivalent()
+
+    def search(self, q, p, **kw):
+        from repro_torch.core import search
+
+        return search(self.index, q, p, **kw)
+
+
+def pre_serve_burst(live, docs, *, adds=PRE_ADDS):
+    """The live cell's pre-serve burst on ``live``: ``adds`` noisy copies
+    of corpus docs added, PRE_DELETES main docs deleted.  Returns the
+    deleted ids."""
+    import numpy as np
+
+    r = np.random.default_rng(2)
+    n, d = docs.shape
+    src = r.integers(0, n, adds)
+    live.add((docs[src] + r.normal(scale=NOISE, size=(adds, d))
+              ).astype(np.float32))
+    gone = r.choice(n, PRE_DELETES, replace=False)
+    live.delete(gone)
+    return gone
+
+
+def disk_line(path):
+    """``df`` of the file system that holds ``path``."""
+    import shutil
+
+    total, used, free = shutil.disk_usage(path)
+    return (f"disk at {path}: {total / 2**30:.1f} GiB, {used / 2**30:.1f} "
+            f"GiB used, {free / 2**30:.1f} GiB free")
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def same_live_state(a, b, what):
+    """Two live indexes on one device hold equal tensors and counters."""
+    import numpy as np
+    import torch
+
+    pairs = [(getattr(a.index, f), getattr(b.index, f), f) for f in
+             ("centroids", "docs", "doc_ids", "cluster_offsets",
+              "cluster_sizes")]
+    pairs += [(getattr(a.delta, f), getattr(b.delta, f), f"delta.{f}")
+              for f in ("vecs", "ids", "assign")]
+    pairs.append((a.dead_lookup(), b.dead_lookup(), "dead"))
+    for x, y, name in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+    for name in ("next_id", "version", "seq", "epoch", "n_live"):
+        if getattr(a, name) != getattr(b, name):
+            raise AssertionError(f"{what}: {name} {getattr(a, name)} != "
+                                 f"{getattr(b, name)}")
+    if a.index.list_pad != b.index.list_pad or a.delta.count != \
+            b.delta.count or not np.array_equal(a.tombs.dead_ids(),
+                                                b.tombs.dead_ids()):
+        raise AssertionError(f"{what}: list_pad, buffer count or "
+                             f"tombstones differ")
+
+
+def same_answers(a, b, queries, pol, what):
+    """``a`` and ``b`` (live indexes or adapters with ``search``) answer
+    alike bit for bit on the fused path and on the kernel pair; the
+    fused path equals the pair too."""
+    import torch
+
+    paths = {"fused": dict(use_fused_kernel=True, chunk=CHUNK),
+             "pair": dict(use_scan_kernel=True, use_topk_kernel=True)}
+    got = {p: a.search(queries, pol, **kw) for p, kw in paths.items()}
+    for p, kw in paths.items():
+        want = b.search(queries, pol, **kw)
+        for name in ("topk_ids", "probes", "topk_scores", "phi_hist"):
+            if not torch.equal(getattr(got[p], name), getattr(want, name)):
+                raise AssertionError(f"{what} ({p}): {name} differs")
+    for name in ("topk_ids", "probes", "topk_scores"):
+        if not torch.equal(getattr(got["fused"], name),
+                           getattr(got["pair"], name)):
+            raise AssertionError(f"{what}: fused != pair on {name}")
+    return got["fused"]
+
+
+def buffer_kernels_vs_plain(ctx, live, qb):
+    """Each kernel that reads the delta buffer, against its plain version
+    on ``live``'s own buffer (its capacity and its fill, as a rebuild's
+    spill leaves them), for the queries ``qb`` at two chunks of CHUNK
+    probes: the serve's first, and the clusters among each query's first
+    N_PROBE that hold the most buffered entries.  ``delta_scan`` over
+    every slot and the fused kernel with the stream within ATOL
+    (near-tie id swaps only); ``ivf_scan`` on the chunk's second lists
+    within ATOL, and ``topk_merge`` of that strip and the gated buffer
+    columns into the fused kernel's top-k after the chunk's first probe,
+    bit-equal.  The errors join the kernels' rows.  The plain versions
+    score the buffer as a (queries, cap, d) product, so they run 16
+    queries at a time."""
+    import torch
+    from repro_torch.kernels import delta_scan as k_ds
+    from repro_torch.kernels import ivf_scan as k_scan
+    from repro_torch.kernels import ivf_scan_merge as k_sm
+    from repro_torch.kernels import topk_merge as k_tm
+
+    index, view, dead = live.index, live.delta_view(), live.dead_lookup()
+    n, lp, block = qb.shape[0], index.list_pad, 16
+    blocks = range(0, n, block)
+    # tombstoned entries burnt to id -1, as the serve gives the buffer
+    ids = torch.where(dead[view.ids.clamp(0, dead.shape[0] - 1).long()]
+                      & (view.ids >= 0), -1, view.ids)
+    rank, _, _, ids2d, empty_s, empty_i = first_chunk(index, qb)
+    fill = torch.bincount(view.assign[ids >= 0].long(),
+                          minlength=index.n_clusters)
+    near = rank[:, :N_PROBE]
+    fullest = torch.gather(near, 1, torch.topk(fill[near], CHUNK, 1).indices)
+    errs = {"delta_scan": 0.0, "ivf_scan_merge+delta": 0.0, "ivf_scan": 0.0}
+
+    got = k_ds.delta_scan(qb, view.vecs)
+    ctx.sync()
+    errs["delta_scan"] = finite_err(got, torch.cat([
+        k_ds.delta_scan_plain(qb[i:i + block], view.vecs) for i in blocks]))
+    lines = []
+    for label, cids in (("first chunk", rank[:, :CHUNK]),
+                        ("fullest buffered clusters", fullest)):
+        sz = index.cluster_sizes[cids].reshape(-1).contiguous()
+        boffs = (index.cluster_offsets[cids] // BLK_L).reshape(-1) \
+            .contiguous()
+        gates = cids.to(torch.int32).reshape(-1).contiguous()
+        kw = dict(k=K, list_pad=lp, chunk=CHUNK, blk_l=BLK_L,
+                  delta_vecs=view.vecs, delta_ids=ids,
+                  delta_assign=view.assign)
+        g = k_sm.ivf_scan_merge(qb, index.docs, ids2d, boffs, sz, empty_s,
+                                empty_i, gate_cids=gates, **kw)
+        ctx.sync()
+        parts = []
+        for i in blocks:
+            rows, slots = slice(i, i + block), slice(i * CHUNK,
+                                                     (i + block) * CHUNK)
+            parts.append(k_sm.ivf_scan_merge_plain(
+                qb[rows], index.docs, ids2d, boffs[slots], sz[slots],
+                empty_s[rows], empty_i[rows], gate_cids=gates[slots], **kw))
+        w = [torch.cat(x) for x in zip(*parts)]
+        what = f"ivf_scan_merge+delta (serving buffer, {label})"
+        swaps, err = near_tie_swaps(g[0], g[1], w[0], w[1], what)
+        if ((g[2] != w[2]) & ~(g[1] != w[1]).any(-1)).any():
+            raise AssertionError(f"{what}: counts differ without an id swap")
+        errs["ivf_scan_merge+delta"] = max(errs["ivf_scan_merge+delta"], err)
+        gated = int(((view.assign[None, :] == gates[:, None])
+                     & (ids >= 0)[None, :]).sum())
+
+        bo1 = boffs.view(n, CHUNK)[:, 1].contiguous()
+        raw = k_scan.ivf_scan(qb, index.docs, bo1, list_pad=lp, blk_l=BLK_L)
+        ctx.sync()
+        errs["ivf_scan"] = max(errs["ivf_scan"], finite_err(
+            raw, k_scan.ivf_scan_plain(qb, index.docs, bo1, list_pad=lp,
+                                       blk_l=BLK_L)))
+        # the chunk's second strip as core.ivf's _probe_rows gives it to
+        # the pair search, then the buffer's columns gated on its cluster
+        lane = torch.arange(lp, device=qb.device)[None]
+        strip_i = torch.where(
+            lane < sz.view(n, CHUNK)[:, 1:2],
+            index.doc_ids[bo1.long()[:, None] * BLK_L + lane], -1)
+        gate = (ids >= 0)[None, :] & (view.assign[None, :] == cids[:, 1:2])
+        wide_s = torch.cat([torch.where(strip_i >= 0, raw, float("-inf")),
+                            torch.where(gate, got, float("-inf"))],
+                           1).contiguous()
+        wide_i = torch.cat([strip_i, torch.where(gate, ids[None, :].expand(
+            n, -1), -1)], 1).contiguous()
+        run_s, run_i = g[0][:, 0].contiguous(), g[1][:, 0].contiguous()
+        tg = k_tm.topk_merge(run_s, run_i, wide_s, wide_i, K)
+        ctx.sync()
+        tw = k_tm.topk_merge_plain(run_s, run_i, wide_s, wide_i, K)
+        if not (torch.equal(tg[0], tw[0]) and torch.equal(tg[1], tw[1])):
+            raise AssertionError(f"topk_merge (serving buffer, {label}): "
+                                 f"not bit-equal")
+        lines.append(f"{label}: {gated} entries gated on {n} x {CHUNK} "
+                     f"slots, {int(gate.sum())} in the topk_merge strips, "
+                     f"{swaps} near-tie id swaps")
+    for name, err in errs.items():
+        if not err <= ATOL:
+            raise AssertionError(f"{name} (serving buffer): err {err}")
+        ctx.max_err[name] = max(ctx.max_err[name], err)
+    print(f"kernels vs plain on the serving buffer ({int((ids >= 0).sum())} "
+          f"live entries of {ids.shape[0]} slots; topk_merge width "
+          f"{lp + ids.shape[0]}, bit-equal): {json.dumps(errs)}; "
+          + "; ".join(lines))
+
+
+def durable_serve(ctx, index, docs, queries, served, exact, live_wall_ms, *,
+                  cap=DURABLE_CAP, pre_adds=PRE_ADDS):
+    """Phases ``durable_setup``, ``durable_serve``, ``durable_finish``,
+    ``durable_recover``, ``durable_recovered_vs_serving`` and
+    ``durable_kernels_vs_plain``: the live cell's serve (the pre-serve
+    burst of ``pre_adds`` adds, then MUTATION_RATE adds, a quarter as
+    many deletes and a publish a wave, a merge every MERGE_EVERY waves;
+    a ``cap``-slot buffer) with a mutation WAL (group commit 8 records /
+    50 ms) and a snapshot manager (``keep=1``) in a temporary directory,
+    and a rebuild requested every REBUILD_EVERY waves, as the reference
+    CLI's ``--mutation-rate 64 --merge-every 16 --rebuild-every 16``
+    runs it, until the first rebuild publishes: every rebuild stage a
+    tick between waves, the publish drained.  Then four more waves and a
+    merge, and ``IndexRegistry.recover`` rebuilds a fresh LiveIndex from
+    the snapshot and the log, which must equal the serving one bit for
+    bit (state, and ids, probes and phi on the fused path and on the
+    kernel pair); the serving index must answer as its from-scratch
+    re-layout does, and each kernel of the buffer's paths must agree
+    with its plain version on the serving index's own buffer.  Returns
+    the printed row."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import metrics, policies
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.index import (IndexRegistry, LiveIndex, MutationWAL,
+                                   Rebuilder, version_of)
+    from repro_torch.launch.serve import MutationStream
+
+    tmp = tempfile.mkdtemp(prefix="durable_serve_")
+    wal = None
+    try:
+        with ctx.phase("durable_setup"):
+            print(disk_line(tmp))
+            wal = MutationWAL(os.path.join(tmp, "mutations.wal"),
+                              group_commit_n=8, group_commit_ms=50.0)
+            appended = [0]
+            append = wal.append
+
+            def counted_append(*a, **kw):
+                appended[0] += 1
+                return append(*a, **kw)
+
+            wal.append = counted_append
+            mgr = CheckpointManager(os.path.join(tmp, "snapshots"), keep=1,
+                                    async_save=False)
+            live = LiveIndex(index, delta_cap=cap, wal=wal)
+            reg = IndexRegistry(version_of(live))
+            ctx.sync()
+            t0 = time.perf_counter()
+            reg.save(mgr)
+            save_s = time.perf_counter() - t0
+            wal.note_durable(live.seq)
+            snap_bytes = dir_bytes(mgr.root)
+            gone = pre_serve_burst(live, docs, adds=pre_adds)
+            reg.publish(version_of(live))
+            print(f"base snapshot: {snap_bytes} bytes saved in {save_s:.3f} "
+                  f"s; {disk_line(tmp)}")
+
+        stream = MutationStream(live, reg, docs, rate=MUTATION_RATE,
+                                merge_every=MERGE_EVERY, noise=NOISE,
+                                rebuild_every=REBUILD_EVERY)
+        reports = []
+
+        def on_publish(new_live, report):
+            # one rebuild is what the checks need: each further one costs
+            # a snapshot write and a retrain on the serving thread
+            stream.on_publish(new_live, report)
+            stream.rebuilder = None
+            reports.append(report)
+
+        rb = Rebuilder(live, reg, mgr, on_publish=on_publish)
+        stream.rebuilder = rb
+        stage_s = {}
+        tick = rb.tick
+
+        def timed_tick():
+            ctx.sync()
+            t1 = time.perf_counter()
+            stage = tick()
+            ctx.sync()
+            stage_s.setdefault(stage, []).append(time.perf_counter() - t1)
+            return stage
+
+        rb.tick = timed_tick
+        ws = WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K,
+                           n_probe=N_PROBE, delta=DELTA, phi=PHI,
+                           registry=reg, rebuilder=rb)
+        ctx.reset()
+        with ctx.phase("durable_serve"):
+            ctx.sync()
+            t0 = time.perf_counter()
+            rep = ws.serve(queries, on_wave=stream)
+            ctx.sync()
+            wall = (time.perf_counter() - t0) * 1000
+            counts = ctx.read(
+                "durable serve (WaveScheduler, fused, registry, WAL, "
+                "rebuilds)", ["ivf_scan_merge+delta"],
+                absent=["ivf_scan_merge", "delta_scan", "ivf_scan",
+                        "topk_merge"])
+            if counts["ivf_scan_merge+delta"] != rep.waves:
+                raise AssertionError("the durable serve did not launch the "
+                                     "fused kernel once per wave")
+            nq = queries.shape[0]
+            if sorted(rep.results) != list(range(nq)):
+                raise AssertionError("the durable serve did not answer "
+                                     "every query once")
+            got = np.stack([rep.results[i] for i in range(nq)])
+            probes = np.array([rep.probes[i] for i in range(nq)])
+            for row in got:
+                real = row[row >= 0]
+                if len(np.unique(real)) != len(real):
+                    raise AssertionError("a durable result holds a "
+                                         "duplicate id")
+            if np.isin(got, gone).any():
+                raise AssertionError("a durable result holds an id deleted "
+                                     "before serving began")
+            r_static = metrics.r_star_at_k(served, exact)
+            r_live = metrics.r_star_at_k(got, exact)
+            summ = dict(
+                **stream.stats, waves=rep.waves,
+                rebuilds=rb.epochs_published, epoch=stream.live.epoch,
+                epoch_swaps=rep.epoch_swaps, drain_waves=rep.drain_waves,
+                rebuild_ticks=rep.rebuild_ticks,
+                rebuild_throttled=rep.rebuild_throttled,
+                recall_static=r_static, recall_live=r_live,
+                recall_gap=abs(r_static - r_live), C=float(probes.mean()),
+                wall_ms=wall, live_serve_wall_ms=live_wall_ms,
+                wal_records_appended=appended[0],
+                wal_bytes_at_end=os.path.getsize(wal.path),
+                wal_fsyncs=wal.fsyncs, base_snapshot_bytes=snap_bytes,
+                base_snapshot_save_s=save_s,
+                stage_s={st: v for st, v in stage_s.items()},
+                rebuild_reports=[dict(
+                    epoch=r.epoch, fence_seq=r.fence_seq, corpus=r.corpus,
+                    spilled=r.spilled, moved=r.moved,
+                    caught_up=r.caught_up, step=r.step) for r in reports])
+            print(json.dumps(summ))
+            if rb.epochs_published < 1 or rep.epoch_swaps < 1:
+                raise AssertionError("no rebuild was published and drained "
+                                     "mid-serve")
+            if summ["recall_gap"] > RECALL_GAP_MAX:
+                raise AssertionError(f"durable serve recall gap "
+                                     f"{summ['recall_gap']} > "
+                                     f"{RECALL_GAP_MAX}")
+
+        with ctx.phase("durable_finish"):
+            # a rebuild still in flight when the queries ran out, then
+            # mutations past its snapshot for the recovery to replay: four
+            # more waves of the stream (no rebuild requests) and a merge
+            ticks = 0
+            while rb.active:
+                rb.tick()
+                ticks += 1
+            for w in range(1, 5):
+                stream(rep.waves + w)
+            stream.live.merge_delta()
+            stream(rep.waves + 5)
+            print(f"finished the in-flight rebuild in {ticks} ticks: "
+                  f"{rb.epochs_published} rebuilds, epoch "
+                  f"{stream.live.epoch}, seq {stream.live.seq}; "
+                  f"{disk_line(tmp)}; snapshots {mgr.all_steps()} "
+                  f"({dir_bytes(mgr.root)} bytes)")
+
+        with ctx.phase("durable_recover"):
+            serving = stream.live
+            wal.flush()
+            restore, load_s = IndexRegistry.restore, []
+
+            def timed_restore(*a, **kw):
+                t1 = time.perf_counter()
+                out = restore(*a, **kw)
+                ctx.sync()
+                load_s.append(time.perf_counter() - t1)
+                return out
+
+            IndexRegistry.restore = timed_restore
+            try:
+                ctx.sync()
+                t0 = time.perf_counter()
+                _, rec, rrep = IndexRegistry.recover(mgr, wal,
+                                                     device=ctx.dev)
+                ctx.sync()
+                rec_s = time.perf_counter() - t0
+            finally:
+                IndexRegistry.restore = restore
+            same_live_state(rec, serving, "recovered vs serving")
+            print(json.dumps(dict(
+                recovery_s=rec_s, snapshot_load_s=load_s[0],
+                replayed=rrep.applied, skipped=rrep.skipped,
+                torn_tail=rrep.torn_tail, epoch_records=rrep.epoch_records,
+                rebuild_promoted=rrep.rebuild_promoted,
+                rebuild_aborted=rrep.rebuild_aborted, seq=rec.seq,
+                epoch=rec.epoch, n_live=rec.n_live)))
+
+        pol = policies.patience(N_PROBE, delta=DELTA, phi=PHI, k=K, tau=TAU)
+        q256 = queries[:256]
+        ctx.reset()
+        with ctx.phase("durable_recovered_vs_serving"):
+            res = same_answers(rec, serving, q256, pol,
+                               "recovered vs serving")
+            rebuilt = Rebuilt(serving)
+            same_answers(serving, rebuilt, q256, pol,
+                         "serving vs its from-scratch re-layout")
+            ctx.sync()
+            ctx.read("recovered vs serving vs rebuilt (fused and kernel "
+                     "pair)", ["ivf_scan_merge+delta", "ivf_scan",
+                               "topk_merge", "delta_scan", "ivf_scan_merge"])
+            print(f"recovered == serving == its from-scratch re-layout "
+                  f"(list_pad {rebuilt.index.list_pad}) bit for bit (state; "
+                  f"ids, probes, scores, phi on the fused path and the "
+                  f"kernel pair) on {q256.shape[0]} queries (C="
+                  f"{res.probes.float().mean().item():.4f}); buffer "
+                  f"{serving.delta.count} entries of "
+                  f"{serving.delta.vecs.shape[0]} slots")
+            del rebuilt
+
+        with ctx.phase("durable_kernels_vs_plain"):
+            buffer_kernels_vs_plain(ctx, serving, queries[:B])
+        return summ
+    finally:
+        if wal is not None:
+            wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rebuild_crash_drills(ctx, *, n_docs=DRILL_DOCS, dim=D, cap=CAP,
+                         shift_batches=16):
+    """Phases ``drill_setup``, ``drill_<failpoint>`` for each of the six
+    ``FAILPOINTS`` and ``drill_drift``, on a corpus of ``n_docs`` at
+    ``dim`` (the live cell's widths and list sizes, its scale cut): a
+    rebuild with mutations landing after its ``begin`` stage crashes at
+    the failpoint and ``IndexRegistry.recover`` must land bit for bit on
+    the no-rebuild state (a crash before COMMIT) or on the rebuilt state
+    (at COMMIT or after), twice; then a ``DriftTracker`` must trigger on
+    ``shift_batches`` batches of 64 shifted adds and rebase after the
+    rebuild it requests, which must not raise the corpus's mean
+    nearest-centroid distance (Lloyd steps never do).
+    Returns the per-failpoint rows."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import build_index, policies
+    from repro_torch.data.synthetic import clustered_corpus
+    from repro_torch.index import (DriftTracker, IndexRegistry, LiveIndex,
+                                   MutationWAL, RebuildCrash, Rebuilder,
+                                   version_of)
+    from repro_torch.index.rebuild import FAILPOINTS, mean_nearest_sq_dist
+
+    with ctx.phase("drill_setup"):
+        corpus = clustered_corpus(n_docs=n_docs, dim=dim,
+                                  n_components=DRILL_CLUSTERS,
+                                  n_queries=256, spread=SPREAD, seed=5)
+        index = build_index(corpus.docs, DRILL_CLUSTERS, list_pad=LIST_PAD,
+                            n_iters=6, align=BLK_L, device=ctx.dev)
+        queries = torch.from_numpy(corpus.queries).to(ctx.dev)
+        ctx.sync()
+        print(f"drill corpus {corpus.docs.shape}, {index.n_clusters} "
+              f"clusters, {index.docs.shape[0]} rows")
+    docs = corpus.docs
+    pol = policies.patience(N_PROBE, delta=DELTA, phi=PHI, k=K, tau=TAU)
+
+    def mutate(live, rng, added, n=6):
+        vecs = (docs[rng.integers(0, len(docs), n)]
+                + rng.normal(scale=NOISE, size=(n, dim))).astype(np.float32)
+        added.extend(int(i) for i in live.add(vecs))
+        live.delete([added.pop()])
+
+    def drill(workdir, failpoint):
+        wal = MutationWAL(os.path.join(workdir, "wal.log"))
+        live = LiveIndex(index, delta_cap=cap, wal=wal)
+        mgr = CheckpointManager(os.path.join(workdir, "snaps"), keep=1,
+                                async_save=False)
+        reg = IndexRegistry(version_of(live))
+        reg.save(mgr)
+        wal.note_durable(live.seq)
+        rng, added = np.random.default_rng(2), []
+        mutate(live, rng, added)
+        rb = Rebuilder(live, reg, mgr, n_iters=DRILL_ITERS,
+                       failpoint=failpoint)
+        rb.request("crash-drill")
+        try:
+            while rb.active:
+                if rb.tick() == "begin":
+                    mutate(live, rng, added)
+        except RebuildCrash:
+            pass
+        return wal, live, mgr, rb
+
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="drill_oracle_") as tmp:
+        owal, _, _, orb = drill(tmp, None)
+        owal.close()
+    oracle_rebuilt = orb.live
+    ctx.reset()
+    for fp in FAILPOINTS:
+        with ctx.phase(f"drill_{fp}"), \
+                tempfile.TemporaryDirectory(prefix="drill_") as tmp:
+            wal, live, mgr, _ = drill(tmp, fp)
+            ctx.sync()
+            t0 = time.perf_counter()
+            _, rec, rep = IndexRegistry.recover(mgr, wal, device=ctx.dev)
+            ctx.sync()
+            rec_ms = (time.perf_counter() - t0) * 1000
+            committed = rec.epoch > 0
+            if committed != (fp in ("commit", "promote")):
+                raise AssertionError(f"drill {fp}: recovered epoch "
+                                     f"{rec.epoch}")
+            if not committed and not rep.rebuild_aborted:
+                raise AssertionError(f"drill {fp}: the open epoch was not "
+                                     f"aborted")
+            oracle = oracle_rebuilt if committed else live
+            same_live_state(rec, oracle, f"drill {fp}")
+            same_answers(rec, oracle, queries, pol, f"drill {fp}")
+            same_answers(rec, Rebuilt(rec), queries, pol,
+                         f"drill {fp}: live vs rebuilt")
+            _, again, _ = IndexRegistry.recover(mgr, wal, device=ctx.dev)
+            same_live_state(again, rec, f"drill {fp}: second recovery")
+            wal.close()
+            row = dict(failpoint=fp,
+                       resolution="promoted" if rep.rebuild_promoted
+                       else "aborted" if rep.rebuild_aborted else "none",
+                       epoch=rec.epoch, replayed=rep.applied,
+                       bit_identical=True, recovery_ms=rec_ms)
+            rows.append(row)
+            print(json.dumps(row))
+    ctx.sync()
+    ctx.read("rebuild crash drills (recovered vs oracle vs rebuilt, fused "
+             "and pair)", ["ivf_scan_merge", "ivf_scan_merge+delta",
+                           "ivf_scan", "topk_merge", "delta_scan"])
+
+    with ctx.phase("drill_drift"):
+        live = LiveIndex(index, delta_cap=cap)
+        reg = IndexRegistry(version_of(live))
+        tracker = DriftTracker(index.centroids, docs, threshold=1.5)
+        rb = Rebuilder(live, reg, n_iters=DRILL_ITERS,
+                       on_publish=lambda new, _:
+                       tracker.rebase(new.index.centroids))
+        rng = np.random.default_rng(7)
+        direction = rng.normal(size=dim)
+        offset = (DRILL_SHIFT * direction / np.linalg.norm(direction)
+                  ).astype(np.float32)
+        first = None
+        for b in range(shift_batches):
+            batch = (docs[rng.integers(0, len(docs), 64)] + offset
+                     ).astype(np.float32)
+            live.add(batch)
+            tracker.observe(batch)
+            if first is None and tracker.triggered:
+                first = b + 1
+        if not tracker.triggered:
+            raise AssertionError(f"the drift tracker did not trigger "
+                                 f"(ratio {tracker.ratio})")
+        ratio = tracker.ratio
+        net, _ = live.net_corpus()
+        before = mean_nearest_sq_dist(net, index.centroids)
+        rep = rb.run_once(f"drift>{tracker.threshold}")
+        after = mean_nearest_sq_dist(net, rb.live.index.centroids)
+        if tracker.ratio != 0.0 or tracker.triggered or not torch.equal(
+                tracker.centroids, rb.live.index.centroids):
+            raise AssertionError("the drift tracker did not rebase")
+        if not after <= before * (1 + 1e-6):
+            raise AssertionError(f"the rebuild raised the corpus's mean "
+                                 f"nearest-centroid distance {before} -> "
+                                 f"{after}")
+        print(json.dumps(dict(
+            shifted_batches=shift_batches, triggered_at_batch=first,
+            ratio_before_rebuild=ratio,
+            corpus_dist_before=before, corpus_dist_after=after,
+            moved=rep.moved, spilled=rep.spilled, epoch=rb.live.epoch)))
+    return rows
+
+
+def kernel_bench_phase(ctx):
+    """Phase ``kernel_bench``: ``kernel_bench.main()`` on the card, its
+    JSON (written in a temporary directory) held to the schema
+    ``make bench-smoke`` asserts, the card named with its power limit,
+    every kernel beside its plain version (f32 rows within 1e-3 of it,
+    bf16 flash within 0.05: normal inputs, d 64)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import kernel_bench
+
+    with ctx.phase("kernel_bench"), tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH_kernels_torch.json")
+        kernel_bench.main(out=out)
+        with open(out) as f:
+            d = json.load(f)
+        kernel_bench.check_schema(d)
+        name, limit = (x.strip() for x in card_line().rsplit(",", 1))
+        want = dict(backend="cuda", device=torch.cuda.get_device_name(0),
+                    power_limit=limit, pipelined_available=True)
+        got = {key: d.get(key) for key in want}
+        if got != want:
+            raise AssertionError(f"kernel_bench names {got}, not {want}")
+        names = {r["name"] for r in d["rows"]}
+        for r in d["rows"]:
+            tol = 0.05 if "bf16" in r["name"] else 1e-3
+            if not (r["us"] > 0 and np.isfinite(r["err"])
+                    and r["err"] <= tol):
+                raise AssertionError(f"kernel_bench row {r}")
+        for kern in ("flash_attention", "flash_attention_bf16", "ivf_scan",
+                     "topk_merge", "ivf_scan_merge", "delta_scan",
+                     "embedding_bag"):
+            if not {f"{kern}_plain", f"{kern}_cuda"} <= names:
+                raise AssertionError(f"kernel_bench has no {kern} rows")
+        print(f"kernel_bench on {name} ({limit}): {len(d['rows'])} rows, "
+              f"{len(d['fused_sweep'])} fused sweep rows, sort "
+              f"{json.dumps(d['sort'])}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
@@ -848,7 +1558,7 @@ def main() -> None:
     from repro_torch.kernels import ivf_scan as k_scan
     from repro_torch.kernels import ivf_scan_merge as k_sm
     from repro_torch.kernels import topk_merge as k_tm
-    from repro_torch.launch.serve import mutation_stream
+    from repro_torch.launch.serve import MutationStream
 
     dev = torch.device("cuda", 0)
     # each kernel's launch counter: (wrapper, attribute); the fused kernel
@@ -910,7 +1620,11 @@ def main() -> None:
         versions, library yardsticks and diagnostic lines are timed by
         events only, so the run keeps its profiler sessions few (a run
         that profiled every timed call once saw no device time in one of
-        its last sessions)."""
+        its last sessions).  A session that records no device time is
+        run again, up to PROFILE_TRIES sessions: CUPTI now and then
+        drops a session's device records (a whole run of this script
+        lost the first session of ``timing``, its events' times and
+        every check sound)."""
         for _ in range(3):
             fn()
         sync()
@@ -929,13 +1643,18 @@ def main() -> None:
             print(f"  {name}: {med:.6f} ms median by events over {reps} "
                   f"calls")
             return med
-        with profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
-        dev = sum(ms for ms, _ in device_ms(prof).values()) / reps
+        for tries in range(1, PROFILE_TRIES + 1):
+            with profile(activities=activities) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            dev = sum(ms for ms, _ in device_ms(prof).values()) / reps
+            if dev > 0:
+                break
+            print(f"  {name}: profiler session {tries} saw no device time")
         if dev <= 0:
-            raise AssertionError(f"{name}: the profiler saw no device time")
+            raise AssertionError(f"{name}: the profiler saw no device time "
+                                 f"in {PROFILE_TRIES} sessions")
         print(f"  {name}: {med:.6f} ms median by events over {reps} calls, "
               f"{dev:.6f} ms device per call by the profiler")
         return med
@@ -984,35 +1703,6 @@ def main() -> None:
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    def finite_err(a, b):
-        both = torch.isfinite(a) & torch.isfinite(b)
-        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
-            raise AssertionError("non-finite entries differ")
-        return float((a - b)[both].abs().max()) if both.any() else 0.0
-
-    def near_tie_swaps(gs, gi, ws, wi, what):
-        """Scores agree position by position within ATOL, and every id
-        that differs is a near tie: it stands in the other list at a score
-        within ATOL, or it is missing there and its score is within ATOL
-        of that list's last one.  Returns (differing ids, max score err)."""
-        err = finite_err(gs, ws)
-        if err > ATOL:
-            raise AssertionError(f"{what}: scores differ by {err}")
-        diff = gi != wi
-
-        def near(a, b):
-            return (a == b) | ((a - b).abs() <= ATOL)
-
-        for xs, xi, ys, yi in ((gs, gi, ws, wi), (ws, wi, gs, gi)):
-            same = xi[..., :, None] == yi[..., None, :]
-            found = (same & near(xs[..., :, None], ys[..., None, :])).any(-1)
-            at_cut = ~same.any(-1) & near(xs, ys[..., -1:])
-            bad = diff & ~found & ~at_cut
-            if bad.any():
-                raise AssertionError(f"{what}: {int(bad.sum())} ids differ "
-                                     f"and are not near ties")
-        return int(diff.sum()), err
 
     def draw(integer, shape):
         if integer:
@@ -1281,17 +1971,10 @@ def main() -> None:
 
     # -- 4. the live index ----------------------------------------------------
     def fresh_live():
-        """A LiveIndex over ``index`` after the pre-serve burst: PRE_ADDS
-        noisy copies of corpus docs added, PRE_DELETES main docs deleted.
-        Returns it and the deleted ids."""
+        """A LiveIndex over ``index`` after the pre-serve burst; returns it
+        and the deleted ids."""
         lv = LiveIndex(index, delta_cap=CAP)
-        r = np.random.default_rng(2)
-        src = r.integers(0, N_DOCS, PRE_ADDS)
-        lv.add((corpus.docs[src] + r.normal(scale=NOISE, size=(PRE_ADDS, D))
-                ).astype(np.float32))
-        gone = r.choice(N_DOCS, PRE_DELETES, replace=False)
-        lv.delete(gone)
-        return lv, gone
+        return lv, pre_serve_burst(lv, corpus.docs)
 
     def live_serve(lv):
         """Serve every query against ``lv`` through a registry, with the
@@ -1301,9 +1984,9 @@ def main() -> None:
         ws_l = WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K,
                              n_probe=N_PROBE, delta=DELTA, phi=PHI,
                              registry=reg)
-        mutate, stats = mutation_stream(lv, reg, corpus.docs,
-                                        rate=MUTATION_RATE,
-                                        merge_every=MERGE_EVERY, noise=NOISE)
+        mutate = MutationStream(lv, reg, corpus.docs, rate=MUTATION_RATE,
+                                merge_every=MERGE_EVERY, noise=NOISE)
+        stats = mutate.stats
         merge, merge_ms = lv.merge_delta, []
 
         def timed_merge():
@@ -1428,18 +2111,9 @@ def main() -> None:
         # main-path inputs: the first wave's queries, their first CHUNK
         # probes, and the running top-k after probe 0
         qb = queries[:B]
-        _, rank = torch.sort(qb @ index.centroids.T, dim=1, descending=True,
-                             stable=True)
+        rank, sz, boffs, ids2d, empty_s, empty_i = first_chunk(index, qb)
         cids = rank[:, :CHUNK]
-        offs = index.cluster_offsets[cids].contiguous()
-        sz = index.cluster_sizes[cids].contiguous()
-        boffs = (offs // BLK_L).reshape(-1).contiguous()
         szf = sz.reshape(-1).contiguous()
-        tail = (-index.doc_ids.shape[0]) % BLK_L
-        ids2d = torch.nn.functional.pad(index.doc_ids, (0, tail),
-                                        value=-1).reshape(-1, BLK_L)
-        empty_s = torch.full((B, K), float("-inf"), device=dev)
-        empty_i = torch.full((B, K), -1, dtype=torch.int32, device=dev)
         s0, i0, _ = k_sm.ivf_scan_merge(qb, index.docs, ids2d, boffs, szf,
                                         empty_s, empty_i, k=K,
                                         list_pad=LIST_PAD, chunk=CHUNK,
@@ -1769,6 +2443,12 @@ def main() -> None:
         print(f"publish after a mutation: host ms median "
               f"{float(np.median(pub_ms)):.3f} over 10 (min "
               f"{min(pub_ms):.3f}, max {max(pub_ms):.3f})")
+
+    # -- 7. durability: WAL, snapshots, rebuilds, recovery, after the
+    # profiled phases (the profiler's sessions all precede this work) ----
+    durable_serve(ctx, index, corpus.docs, queries, served, exact, wall_l)
+    rebuild_crash_drills(ctx)
+    kernel_bench_phase(ctx)
 
     kernels = []
     for r in rows:

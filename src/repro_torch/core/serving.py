@@ -13,9 +13,11 @@ riding it as its delta stream.
 With a version registry (``repro_torch.index.IndexRegistry``) the
 scheduler serves the live index: it adopts the registry's current
 version between waves, scrubs tombstoned ids out of running top-k
-state, and drains in-flight lanes before adopting a new epoch.
-Deadlines (the degradation ladder) and background rebuilds come with
-the serving and durability slices of the port.
+state, and drains in-flight lanes before adopting a new epoch.  With a
+``rebuilder`` (``repro_torch.index.Rebuilder``) it runs one background
+rebuild stage between waves.  Deadlines (the degradation ladder, which
+throttles those ticks in the reference) come with the serving slice of
+the port.
 """
 from __future__ import annotations
 
@@ -187,6 +189,8 @@ class ServeReport:
     lane_steps: int             # total lane-probe slots spent
     epoch_swaps: int = 0        # higher-epoch versions adopted (drained)
     drain_waves: int = 0        # waves spent draining before a swap
+    rebuild_ticks: int = 0      # rebuild stages run between waves
+    rebuild_throttled: int = 0  # ticks skipped (no deadline ladder: 0)
 
 
 class WaveScheduler:
@@ -206,12 +210,17 @@ class WaveScheduler:
     scheduler drains: it keeps the pinned version, stops admitting,
     finishes in-flight lanes, and adopts the new epoch once no lane is
     active.  Every version must lie on the scheduler's device.
+
+    ``rebuilder`` (optional, ``repro_torch.index.Rebuilder``): while it
+    is armed, the scheduler runs ONE rebuild pipeline stage after each
+    wave.
     """
 
     def __init__(self, index: IVFIndex, *, wave_size: int = 64,
                  chunk: int = 8, k: int = 100, n_probe: int = 80,
                  delta: int = 7, phi: float = 95.0, use_fused: bool = True,
-                 registry=None, device: DeviceLike = None):
+                 registry=None, rebuilder=None,
+                 device: DeviceLike = None):
         self.device = index_device(index, device)
         if use_fused:
             validate_alignment(index)
@@ -224,6 +233,7 @@ class WaveScheduler:
         self.phi = phi
         self.use_fused = use_fused
         self.registry = registry
+        self.rebuilder = rebuilder
         self._pinned = None        # version lanes are probing against
 
     def _refresh_pin(self, active_any: bool) -> Tuple[bool, bool]:
@@ -268,7 +278,7 @@ class WaveScheduler:
         waves = 0
         occ = []
         lane_steps = 0
-        epoch_swaps = drain_waves = 0
+        epoch_swaps = drain_waves = rebuild_ticks = 0
         prev_active = np.zeros(self.w, bool)
         prev_qids = np.full(self.w, -1, np.int32)
         self._pinned = None if self.registry is None \
@@ -313,6 +323,10 @@ class WaveScheduler:
             waves += 1
             if on_wave is not None:
                 on_wave(waves)
+            if self.rebuilder is not None and self.rebuilder.active:
+                self.rebuilder.tick()
+                rebuild_ticks += 1
         return ServeReport(results, probes, waves,
                            float(np.mean(occ)) if occ else 0.0, lane_steps,
-                           epoch_swaps=epoch_swaps, drain_waves=drain_waves)
+                           epoch_swaps=epoch_swaps, drain_waves=drain_waves,
+                           rebuild_ticks=rebuild_ticks)

@@ -1,6 +1,5 @@
 """LiveIndex: streaming mutations over a frozen cluster-major IVF index
-(port of ``repro.index.live``, without the mutation WAL, which comes
-with the durability slice).
+(port of ``repro.index.live``).
 
 Write path (host-coordinated, cheap):
   * ``add``    -> vectors land in the :class:`DeltaBuffer` on the
@@ -21,7 +20,13 @@ view)``, bit-identical to a freshly rebuilt index holding the net
 corpus (``rebuild_equivalent``) for every exit policy on every path.
 Centroids never change under mutation within an *epoch*, which keeps
 probe order — and mid-flight lane state — valid across ``merge_delta``
-version swaps.
+version swaps.  Only a background re-clustering
+(``repro_torch.index.rebuild``) retrains them, bumping ``epoch``.
+
+With a mutation WAL (``wal=``, :class:`repro_torch.index.wal.MutationWAL`)
+every mutation appends one record *before* any state changes, its
+arguments validated first so a logged record always replays; the WAL
+bytes are the reference's (an add logs its host f32 vectors).
 
 The host keeps an id -> row ``int64`` array (-1 for "absent") in place
 of the reference's dict, for ``delete``; everything that walks the
@@ -41,6 +46,7 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, check_same_device,
                                   validate_alignment)
 from repro_torch.index.delta import (DeltaBuffer, Tombstones, _on,
                                      assign_clusters)
+from repro_torch.index.wal import OP_ADD, OP_DELETE, OP_MERGE
 
 
 def relayout(vecs, ids, assign, centroids, *, list_pad: int,
@@ -111,7 +117,7 @@ class LiveIndex:
     on the index's device."""
 
     def __init__(self, index: IVFIndex, *, delta_cap: int = 1024,
-                 align: int = 64, round_total_to: int = 4096):
+                 align: int = 64, round_total_to: int = 4096, wal=None):
         validate_alignment(index, blk_l=align)
         self.index = index
         self.device = index.docs.device
@@ -124,10 +130,12 @@ class LiveIndex:
         self.version = 0                 # bumped by merge_delta
         self.seq = 0                     # bumped by every mutation
         self.epoch = 0                   # bumped by a rebuild publish
+        self.wal = wal
+        self._replaying = False
 
     @classmethod
     def from_version(cls, ver, *, align: int = 64,
-                     round_total_to: int = 4096) -> "LiveIndex":
+                     round_total_to: int = 4096, wal=None) -> "LiveIndex":
         """A LiveIndex from a published snapshot
         (:class:`repro_torch.index.registry.IndexVersion`).  The delta
         buffer and tombstone set are rebuilt slot for slot, so replaying
@@ -157,7 +165,16 @@ class LiveIndex:
         self.version = int(ver.merges)
         self.seq = int(ver.seq) if ver.seq >= 0 else int(ver.version)
         self.epoch = int(ver.epoch)
+        self.wal = wal
+        self._replaying = False
         return self
+
+    def _log(self, op: int, payload: Optional[np.ndarray] = None) -> None:
+        if self.wal is not None and not self._replaying:
+            # merge is a compaction boundary: force the group-commit
+            # batch to disk before the re-layout runs
+            self.wal.append(op, self.seq + 1, payload,
+                            force=(op == OP_MERGE))
 
     # -- host mirror and the layout ------------------------------------------
     def _refresh_mirrors(self) -> None:
@@ -185,10 +202,18 @@ class LiveIndex:
     def add(self, vecs) -> np.ndarray:
         """Stage new vectors; returns their external doc ids.
         Raises :class:`DeltaFull` when the buffer is out of slots."""
+        host = None
+        if not isinstance(vecs, torch.Tensor):
+            # a host payload is logged as given (the reference's bytes)
+            host = np.asarray(vecs, np.float32).reshape(-1, self.index.dim)
+            vecs = host
         vecs = _on(self.device, vecs, torch.float32, "vecs") \
             .reshape(-1, self.index.dim)
         m = vecs.shape[0]
-        self.delta.ensure_room(m)
+        self.delta.ensure_room(m)        # validate BEFORE logging
+        if self.wal is not None and not self._replaying:
+            self._log(OP_ADD, host if host is not None
+                      else vecs.cpu().numpy())
         ids = np.arange(self.next_id, self.next_id + m, dtype=np.int32)
         self.delta.add(vecs, ids, assign_clusters(vecs, self.index.centroids))
         self.next_id += m
@@ -202,6 +227,7 @@ class LiveIndex:
         bad = ids[(ids < 0) | (ids >= self.next_id)]
         if bad.size:
             raise ValueError(f"doc id {int(bad[0])} was never allocated")
+        self._log(OP_DELETE, ids)
         burn_rows = []
         for i in ids.tolist():
             if i in self.tombs:
@@ -227,6 +253,7 @@ class LiveIndex:
         ``list_pad`` spill back into the buffer (the newest of a
         cluster first).  Returns the new version number.
         """
+        self._log(OP_MERGE)
         lp = self.index.list_pad
         rows, assign_main = self._main_rows()
         fill = torch.bincount(assign_main, minlength=self.index.n_clusters

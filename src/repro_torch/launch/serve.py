@@ -13,13 +13,28 @@ document adds per wave (plus R//4 deletes of previously added docs)
 a fresh index version every M waves.  The driver then prints the live
 row: live-vs-static recall, adds/deletes/merges, versions and swaps.
 
-Runs on the CUDA card unless ``--device cpu`` is given.  The chaos,
-deadline and rebuild flags of the reference driver come with the
-serving and durability slices of the port.
+Background re-clustering (``repro_torch.index.rebuild``):
+``--rebuild-every N`` requests a crash-safe centroid rebuild every N
+waves; ``--rebuild-drift R`` instead arms a ``DriftTracker`` that
+requests one when added docs drift R x off the build-time baseline.
+The live index then logs every mutation to a WAL and snapshots into a
+temporary directory; rebuild stages interleave with serving waves and
+the swap is epoch-fenced.  The row gains rebuilds, epoch, epoch swaps,
+drain waves, rebuild ticks and (with ``--rebuild-drift``) the drift
+ratio:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mutation-rate 64 \
+        --merge-every 16 --rebuild-every 16
+
+Runs on the CUDA card unless ``--device cpu`` is given.  The chaos and
+deadline flags of the reference CLI come with the serving slice of the
+port.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 from typing import Dict, Optional, Sequence
 
@@ -27,11 +42,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import brute_force, build_index, metrics, policies, \
     search
 from repro_torch.core.serving import WaveScheduler
 from repro_torch.data.synthetic import clustered_corpus
-from repro_torch.index import DeltaFull, IndexRegistry, LiveIndex, version_of
+from repro_torch.index import (DeltaFull, DriftTracker, IndexRegistry,
+                               LiveIndex, MutationWAL, Rebuilder, version_of)
 
 
 def _sync(dev: torch.device) -> None:
@@ -52,42 +69,69 @@ def _serve(ws: WaveScheduler, queries: torch.Tensor, dev: torch.device, *,
     return rep, ids, probes, wall
 
 
-def mutation_stream(live: LiveIndex, reg: IndexRegistry, docs: np.ndarray, *,
-                    rate: int, merge_every: int, noise: float):
-    """The ``on_wave`` hook of a live serve, and its counters: after each
-    wave add ``rate`` noisy copies of corpus docs (a full buffer merges
-    instead), delete ``rate // 4`` earlier adds, merge every
-    ``merge_every`` waves, and publish a version.  The same arguments
-    give the same stream."""
-    rng = np.random.default_rng(1)
-    added: list = []
-    stats = {"adds": 0, "deletes": 0, "merges": 0}
+class MutationStream:
+    """The ``on_wave`` hook of a live serve, and its counters (``stats``):
+    after each wave add ``rate`` noisy copies of corpus docs (a full
+    buffer merges instead), delete ``rate // 4`` earlier adds, merge
+    every ``merge_every`` waves, and publish a version.  The same
+    arguments give the same stream.
 
-    def mutate(wave: int) -> None:
+    Once ``rebuilder`` is set (a ``repro_torch.index.Rebuilder`` built
+    with :meth:`on_publish` as its hook, which rebinds the stream to the
+    rebuilt index and rebases the tracker) it requests a rebuild every
+    ``rebuild_every`` waves, or when ``tracker`` (a ``DriftTracker`` fed
+    every batch it adds) triggers."""
+
+    def __init__(self, live: LiveIndex, reg: IndexRegistry,
+                 docs: np.ndarray, *, rate: int, merge_every: int,
+                 noise: float, rebuild_every: int = 0):
+        self.live, self.reg, self.docs = live, reg, docs
+        self.rate, self.merge_every, self.noise = rate, merge_every, noise
+        self.rebuild_every = rebuild_every
+        self.rebuilder: Optional[Rebuilder] = None
+        self.tracker: Optional[DriftTracker] = None
+        self.rng = np.random.default_rng(1)
+        self.added: list = []
+        self.stats = {"adds": 0, "deletes": 0, "merges": 0}
+
+    def on_publish(self, new_live: LiveIndex, report) -> None:
+        self.live = new_live             # rebind the mutation stream
+        if self.tracker is not None:
+            self.tracker.rebase(new_live.index.centroids)
+
+    def __call__(self, wave: int) -> None:
+        live, rng, docs, rate = self.live, self.rng, self.docs, self.rate
         # corpus-like churn: noisy copies of existing docs, so added
         # vectors score on the same scale as the static corpus
         src = rng.integers(0, docs.shape[0], rate)
-        new = (docs[src] + rng.normal(scale=noise, size=(rate,
-                                                          docs.shape[1]))
+        new = (docs[src] + rng.normal(scale=self.noise,
+                                      size=(rate, docs.shape[1]))
                ).astype(np.float32)
         try:
-            added.extend(int(i) for i in live.add(new))
-            stats["adds"] += rate
+            self.added.extend(int(i) for i in live.add(new))
+            self.stats["adds"] += rate
+            if self.tracker is not None:
+                self.tracker.observe(new)
         except DeltaFull:
             live.merge_delta()
-            stats["merges"] += 1
+            self.stats["merges"] += 1
         n_del = rate // 4
-        if n_del and len(added) > n_del:
-            doomed = [added.pop(rng.integers(len(added)))
+        if n_del and len(self.added) > n_del:
+            doomed = [self.added.pop(rng.integers(len(self.added)))
                       for _ in range(n_del)]
             live.delete(doomed)
-            stats["deletes"] += n_del
-        if merge_every and wave % merge_every == 0 and len(live.delta):
+            self.stats["deletes"] += n_del
+        if self.merge_every and wave % self.merge_every == 0 \
+                and len(live.delta):
             live.merge_delta()
-            stats["merges"] += 1
-        reg.publish(version_of(live))
-
-    return mutate, stats
+            self.stats["merges"] += 1
+        self.reg.publish(version_of(live))
+        rb = self.rebuilder
+        if rb is not None and not rb.active:
+            if self.rebuild_every and wave % self.rebuild_every == 0:
+                rb.request(f"every-{self.rebuild_every}")
+            elif self.tracker is not None and self.tracker.triggered:
+                rb.request(f"drift>{self.tracker.threshold}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -112,6 +156,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                          "version every N waves")
     ap.add_argument("--delta-cap", type=int, default=4096,
                     help="delta buffer capacity (slots)")
+    ap.add_argument("--rebuild-every", type=int, default=0,
+                    help="request a background centroid rebuild every "
+                         "N waves of the live stream (0 = off); stages "
+                         "interleave with serving waves and the swap "
+                         "is epoch-fenced")
+    ap.add_argument("--rebuild-drift", type=float, default=0.0,
+                    help="drift-ratio threshold that triggers a "
+                         "rebuild (0 = off): mean nearest-centroid "
+                         "distance of added docs vs the build-time "
+                         "baseline")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the plain versions of the kernels)")
@@ -152,21 +206,40 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         return summ
 
     # --- mixed query/mutation stream over the live index ------------------
-    live = LiveIndex(index, delta_cap=args.delta_cap)
+    rebuild_on = args.rebuild_every > 0 or args.rebuild_drift > 0
+    rb_tmp = wal = mgr = None
+    if rebuild_on:
+        # a durable rebuild needs a WAL (catch-up across stages) and a
+        # snapshot root (two-phase publish); both are scratch here
+        rb_tmp = tempfile.TemporaryDirectory(prefix="serve_rebuild_")
+        wal = MutationWAL(os.path.join(rb_tmp.name, "mutations.wal"),
+                          group_commit_n=8, group_commit_ms=50.0)
+        mgr = CheckpointManager(os.path.join(rb_tmp.name, "snapshots"),
+                                async_save=False)
+    live = LiveIndex(index, delta_cap=args.delta_cap, wal=wal)
     reg = IndexRegistry(version_of(live))
+    stream = MutationStream(live, reg, c.docs, rate=args.mutation_rate,
+                            merge_every=args.merge_every, noise=0.05,
+                            rebuild_every=args.rebuild_every)
+    if rebuild_on:
+        reg.save(mgr)
+        wal.note_durable(live.seq)
+        stream.rebuilder = Rebuilder(live, reg, mgr,
+                                     on_publish=stream.on_publish)
+        if args.rebuild_drift > 0:
+            stream.tracker = DriftTracker(index.centroids, c.docs,
+                                          threshold=args.rebuild_drift)
     ws_live = WaveScheduler(index, wave_size=args.wave_size, chunk=4,
                             k=args.k, n_probe=args.n_probe,
-                            delta=args.delta, phi=args.phi, registry=reg)
-    mutate, stats = mutation_stream(live, reg, c.docs,
-                                    rate=args.mutation_rate,
-                                    merge_every=args.merge_every,
-                                    noise=0.05)
+                            delta=args.delta, phi=args.phi, registry=reg,
+                            rebuilder=stream.rebuilder)
     rep_l, ids_l, probes_l, wall_l = _serve(
-        ws_live, queries, dev, compact=not args.no_compact, on_wave=mutate)
+        ws_live, queries, dev, compact=not args.no_compact, on_wave=stream)
+    live = stream.live
     r_static = metrics.r_star_at_k(ids, exact)
     r_live = metrics.r_star_at_k(ids_l, exact)
     row = {"mode": "live", "mutation_rate": args.mutation_rate,
-           "merge_every": args.merge_every, **stats,
+           "merge_every": args.merge_every, **stream.stats,
            "versions": live.version, "swaps": reg.swaps,
            "delta_occupancy": round(live.delta.occupancy(), 3),
            "recall_static": round(r_static, 4),
@@ -174,7 +247,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
            "recall_gap": round(abs(r_static - r_live), 4),
            "latency_ms": round(wall_l, 1),
            "mean_probes": round(float(probes_l.mean()), 2)}
+    if stream.rebuilder is not None:
+        row.update({"rebuilds": stream.rebuilder.epochs_published,
+                    "epoch": live.epoch,
+                    "epoch_swaps": rep_l.epoch_swaps,
+                    "drain_waves": rep_l.drain_waves,
+                    "rebuild_ticks": rep_l.rebuild_ticks,
+                    "rebuild_throttled": rep_l.rebuild_throttled})
+        if stream.tracker is not None:
+            row["drift_ratio"] = round(stream.tracker.ratio, 3)
     print(row)
+    if rb_tmp is not None:
+        wal.close()
+        rb_tmp.cleanup()
     return {**summ, **row}
 
 
