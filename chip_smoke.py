@@ -62,6 +62,22 @@ a line of its own:
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
    and D=1, its bound on 32-byte sectors) are held against their plain
    versions there too; a profiled static and live serve;
+6b. deadline-budgeted serving on the main path's index and queries
+   (``WaveScheduler(deadline_ms=)``, one fused launch a wave): under a
+   simulated clock of 1 ms a wave, budgets of 4, 8, 16 and 32 ms and
+   none, every query answered once, none past its budget by more than
+   one wave, every degraded query with a reason, R*@k not falling as the
+   budget grows, the unbounded row the static serve bit for bit, the
+   8 ms row equal on the per-probe kernel pair; 4 ms waves under a 1 ms
+   budget shed; on the real clock budgets of 4, 8 and 16 mean wave
+   walls (the overshoot printed); on the drills' 65,536-document
+   substrate (built here, reused by 7) the live stream with a WAL,
+   snapshots and a rebuild requested before the serve, paused under a
+   6 ms budget and ticking without one; the main index in 4 shards by
+   ``search_with_retry`` (clean, a flaky shard answering as clean, a
+   dead shard skipped, a backoff budget run dry); ``run_chaos`` on the
+   drills' substrate, its artifact held to ``make chaos-smoke`` and
+   bench-smoke's resilience checks; ``serving_bench.main(smoke=True)``;
 7. durability on the main path's index, after the profiled phases: the
    live serve of 4 with a mutation WAL (group commit 8 records / 50
    ms), a snapshot manager (``keep=1``) in a temporary directory and a
@@ -891,6 +907,15 @@ DURABLE_CAP = 65_536
 DRILL_DOCS, DRILL_CLUSTERS = 65_536, 512
 DRILL_SHIFT = 1.0              # norm of the drift drill's shift (docs: 1)
 DRILL_ITERS = 2                # the drills' Lloyd steps a retrain
+# deadline phases: simulated waves of 1 ms, so one wave bounds a query's
+# overshoot (tests/test_resilience.py holds it so at chunk 1), the budgets
+# in simulated ms; on the real clock the budgets are multiples of the
+# unbounded serve's mean wave wall, measured in the phase
+SIM_WAVE_MS, SIM_DEADLINES = 1.0, (4.0, 8.0, 16.0, 32.0)
+SHED_WAVE_MS, SHED_DEADLINE = 4.0, 1.0
+REAL_DEADLINE_WAVES = (4, 8, 16)
+THROTTLE_DEADLINE = 6.0        # simulated ms, the drill serve's tight row
+N_SHARDS = 4
 
 
 def first_chunk(index, qb):
@@ -1339,31 +1364,14 @@ def durable_serve(ctx, index, docs, queries, served, exact, live_wall_ms, *,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def rebuild_crash_drills(ctx, *, n_docs=DRILL_DOCS, dim=D, cap=CAP,
-                         shift_batches=16):
-    """Phases ``drill_setup``, ``drill_<failpoint>`` for each of the six
-    ``FAILPOINTS`` and ``drill_drift``, on a corpus of ``n_docs`` at
-    ``dim`` (the live cell's widths and list sizes, its scale cut): a
-    rebuild with mutations landing after its ``begin`` stage crashes at
-    the failpoint and ``IndexRegistry.recover`` must land bit for bit on
-    the no-rebuild state (a crash before COMMIT) or on the rebuilt state
-    (at COMMIT or after), twice; then a ``DriftTracker`` must trigger on
-    ``shift_batches`` batches of 64 shifted adds and rebase after the
-    rebuild it requests, which must not raise the corpus's mean
-    nearest-centroid distance (Lloyd steps never do).
-    Returns the per-failpoint rows."""
-    import os
-    import tempfile
-
-    import numpy as np
+def drill_substrate(ctx, *, n_docs=DRILL_DOCS, dim=D):
+    """Phase ``drill_setup``: the drills' corpus of ``n_docs`` at ``dim``
+    (the live cell's widths and list sizes, its scale cut), 256 queries,
+    and its index on the card.  Returns (corpus, index, queries on the
+    card)."""
     import torch
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.core import build_index, policies
+    from repro_torch.core import build_index
     from repro_torch.data.synthetic import clustered_corpus
-    from repro_torch.index import (DriftTracker, IndexRegistry, LiveIndex,
-                                   MutationWAL, RebuildCrash, Rebuilder,
-                                   version_of)
-    from repro_torch.index.rebuild import FAILPOINTS, mean_nearest_sq_dist
 
     with ctx.phase("drill_setup"):
         corpus = clustered_corpus(n_docs=n_docs, dim=dim,
@@ -1375,7 +1383,35 @@ def rebuild_crash_drills(ctx, *, n_docs=DRILL_DOCS, dim=D, cap=CAP,
         ctx.sync()
         print(f"drill corpus {corpus.docs.shape}, {index.n_clusters} "
               f"clusters, {index.docs.shape[0]} rows")
+    return corpus, index, queries
+
+
+def rebuild_crash_drills(ctx, drill, *, cap=CAP, shift_batches=16):
+    """Phases ``drill_<failpoint>`` for each of the six ``FAILPOINTS``
+    and ``drill_drift`` on ``drill`` (``drill_substrate``'s corpus, index
+    and queries): a rebuild with mutations landing after its ``begin``
+    stage crashes at the failpoint and ``IndexRegistry.recover`` must
+    land bit for bit on the no-rebuild state (a crash before COMMIT) or
+    on the rebuilt state (at COMMIT or after), twice; then a
+    ``DriftTracker`` must trigger on ``shift_batches`` batches of 64
+    shifted adds and rebase after the rebuild it requests, which must
+    not raise the corpus's mean nearest-centroid distance (Lloyd steps
+    never do).  Returns the per-failpoint rows."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import policies
+    from repro_torch.index import (DriftTracker, IndexRegistry, LiveIndex,
+                                   MutationWAL, RebuildCrash, Rebuilder,
+                                   version_of)
+    from repro_torch.index.rebuild import FAILPOINTS, mean_nearest_sq_dist
+
+    corpus, index, queries = drill
     docs = corpus.docs
+    dim = docs.shape[1]
     pol = policies.patience(N_PROBE, delta=DELTA, phi=PHI, k=K, tau=TAU)
 
     def mutate(live, rng, added, n=6):
@@ -1486,6 +1522,442 @@ def rebuild_crash_drills(ctx, *, n_docs=DRILL_DOCS, dim=D, cap=CAP,
             ratio_before_rebuild=ratio,
             corpus_dist_before=before, corpus_dist_after=after,
             moved=rep.moved, spilled=rep.spilled, epoch=rb.live.epoch)))
+    return rows
+
+
+# -- resilience: deadlines, shard retry, chaos ------------------------------
+
+
+def deadline_phases(ctx, index, queries, exact, static):
+    """Phases ``deadline_sim``, ``deadline_fused_vs_pair``,
+    ``deadline_shed`` and ``deadline_real`` on the main path's index and
+    queries.  ``static`` is the ``serve`` phase's report.  Under a
+    simulated clock (SIM_WAVE_MS a wave) every query is answered once,
+    none overshoots its budget by more than one wave, every degraded
+    query names a reason, R*@k does not fall as the budget grows, the
+    unbounded row is the static serve bit for bit, and the per-probe
+    kernel pair gives the fused serve's report; waves of SHED_WAVE_MS
+    under SHED_DEADLINE shed.  On the real clock the invariants only:
+    the overshoot is printed, a finding and no gate.  Returns the
+    simulated and real rows."""
+    from collections import Counter
+
+    import numpy as np
+    from repro_torch.core import metrics
+    from repro_torch.core.policies import DEGRADE_REASONS
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.runtime.chaos import SimClock
+
+    nq = queries.shape[0]
+    others = ["ivf_scan_merge+delta", "delta_scan", "ivf_scan",
+              "topk_merge"]
+
+    def scheduler(**kw):
+        return WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K,
+                             n_probe=N_PROBE, delta=DELTA, phi=PHI, **kw)
+
+    def sim_serve(deadline, wave_ms=SIM_WAVE_MS, **kw):
+        clock = SimClock()
+        return scheduler(deadline_ms=deadline, clock=clock, **kw).serve(
+            queries, on_wave=lambda w: clock.advance(wave_ms))
+
+    def checked(rep, deadline, what, late_reason=True):
+        """The invariants of a deadline serve (with ``late_reason``, also
+        that a query past its budget names a reason: a query that exits
+        on its own inside an overlong wave has none); returns its row."""
+        if sorted(rep.results) != list(range(nq)) \
+                or sorted(rep.latency_ms) != list(range(nq)):
+            raise AssertionError(f"{what}: not every query answered once")
+        reasons = Counter(rep.degraded.values())
+        if not set(reasons) <= set(DEGRADE_REASONS):
+            raise AssertionError(f"{what}: unknown reasons {reasons}")
+        over = 0.0
+        if deadline is not None:
+            late = [q for q, lat in rep.latency_ms.items()
+                    if lat > deadline and q not in rep.degraded]
+            if late and late_reason:
+                raise AssertionError(f"{what}: {len(late)} queries past "
+                                     f"the budget carry no reason")
+            over = max(lat - deadline for lat in rep.latency_ms.values())
+        elif rep.degraded:
+            raise AssertionError(f"{what}: degraded without a deadline")
+        ids = np.stack([rep.results[i] for i in range(nq)])
+        return dict(deadline_ms=deadline,
+                    recall=metrics.r_star_at_k(ids, exact),
+                    C=float(np.mean([rep.probes[i] for i in range(nq)])),
+                    degraded_fraction=rep.degraded_fraction,
+                    reasons=dict(reasons), shed=len(rep.shed_ids()),
+                    max_overshoot_ms=max(over, 0.0), waves=rep.waves,
+                    wave_cost_ms=rep.wave_cost_ms)
+
+    sim = {}
+    with ctx.phase("deadline_sim"):
+        rows = []
+        for dl in SIM_DEADLINES + (None,):
+            ctx.reset()
+            sim[dl] = sim_serve(dl)
+            ctx.sync()
+            ctx.read(f"deadline serve {dl} ms (sim clock, fused)",
+                     ["ivf_scan_merge"], absent=others)
+            row = checked(sim[dl], dl, f"deadline {dl} ms")
+            rows.append(row)
+            print(json.dumps(row))
+            if row["max_overshoot_ms"] > SIM_WAVE_MS + 1e-9:
+                raise AssertionError(f"deadline {dl} ms overshot by "
+                                     f"{row['max_overshoot_ms']} ms, more "
+                                     f"than one wave")
+        recalls = [r["recall"] for r in rows]
+        if any(a > b + 1e-9 for a, b in zip(recalls, recalls[1:])):
+            raise AssertionError(f"R*@k falls as the budget grows: "
+                                 f"{recalls}")
+        free = sim[None]
+        if free.degraded or any(
+                not np.array_equal(free.results[i], static.results[i])
+                or free.probes[i] != static.probes[i] for i in range(nq)):
+            raise AssertionError("the unbounded deadline serve != the "
+                                 "static serve")
+        print("unbounded deadline serve == static serve bit for bit "
+              "(results, probes), nothing degraded")
+
+    with ctx.phase("deadline_fused_vs_pair"):
+        dl = SIM_DEADLINES[1]
+        ctx.reset()
+        pair = sim_serve(dl, use_fused=False)
+        ctx.sync()
+        ctx.read(f"deadline serve {dl} ms (sim clock, per-probe kernel "
+                 f"pair)", ["ivf_scan", "topk_merge"],
+                 absent=["ivf_scan_merge", "ivf_scan_merge+delta",
+                         "delta_scan"])
+        fused = sim[dl]
+        for name in ("degraded", "latency_ms", "waves", "wave_cost_ms",
+                     "probes"):
+            if getattr(pair, name) != getattr(fused, name):
+                raise AssertionError(f"deadline {dl} ms: fused != pair on "
+                                     f"{name}")
+        if pair.results.keys() != fused.results.keys() or any(
+                not np.array_equal(pair.results[q], fused.results[q])
+                for q in fused.results):
+            raise AssertionError(f"deadline {dl} ms: fused != pair on "
+                                 f"results")
+        print(f"deadline {dl} ms: fused == per-probe kernel pair (results, "
+              f"probes, degraded, latency_ms, waves, wave_cost_ms)")
+
+    with ctx.phase("deadline_shed"):
+        rep = sim_serve(SHED_DEADLINE, wave_ms=SHED_WAVE_MS)
+        row = checked(rep, SHED_DEADLINE, "shed", late_reason=False)
+        shed = rep.shed_ids()
+        if not shed or any(rep.degraded[q] != "shed"
+                           or (rep.results[q] != -1).any()
+                           or rep.probes[q] != 0 for q in shed):
+            raise AssertionError(f"shed rows off: {row}")
+        print(json.dumps(row))
+
+    real = []
+    with ctx.phase("deadline_real"):
+        def real_serve(deadline):
+            ws = scheduler(deadline_ms=deadline)
+            ctx.sync()
+            t0 = time.perf_counter()
+            rep = ws.serve(queries)
+            ctx.sync()
+            wall = (time.perf_counter() - t0) * 1000
+            row = checked(rep, deadline, f"real deadline {deadline} ms",
+                          late_reason=False)
+            row.update(wall_ms=wall, wave_wall_ms=wall / rep.waves,
+                       max_overshoot_waves=row["max_overshoot_ms"]
+                       / max(rep.wave_cost_ms, 1e-9))
+            print(json.dumps(row))
+            return row
+
+        real_serve(None)                    # warm: its wall is not used
+        ctx.reset()
+        free = real_serve(None)
+        ctx.read("unbounded serve (real clock, fused)", ["ivf_scan_merge"],
+                 absent=others)
+        real.append(free)
+        for mult in REAL_DEADLINE_WAVES:
+            real.append(real_serve(mult * free["wave_wall_ms"]))
+    return rows, real
+
+
+def deadline_throttle(ctx, drill, *, cap=CAP, deadline=THROTTLE_DEADLINE):
+    """Phase ``deadline_throttle`` on the drills' substrate: the live
+    stream (MUTATION_RATE adds a wave, a merge every MERGE_EVERY) with a
+    WAL, snapshots and a rebuild requested before the serve, once under a
+    ``deadline`` of simulated ms (SIM_WAVE_MS a wave) and once without:
+    the tight serve must pause rebuild ticks (``rebuild_throttled`` > 0),
+    the unbounded one never and tick."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.index import (IndexRegistry, LiveIndex, MutationWAL,
+                                   Rebuilder, version_of)
+    from repro_torch.launch.serve import MutationStream
+    from repro_torch.runtime.chaos import SimClock
+
+    corpus, index, queries = drill
+    rows = {}
+    ctx.reset()
+    with ctx.phase("deadline_throttle"):
+        for dl in (deadline, None):
+            with tempfile.TemporaryDirectory(prefix="throttle_") as tmp:
+                wal = MutationWAL(os.path.join(tmp, "wal.log"),
+                                  group_commit_n=8, group_commit_ms=50.0)
+                live = LiveIndex(index, delta_cap=cap, wal=wal)
+                mgr = CheckpointManager(os.path.join(tmp, "snaps"), keep=1,
+                                        async_save=False)
+                reg = IndexRegistry(version_of(live))
+                reg.save(mgr)
+                wal.note_durable(live.seq)
+                stream = MutationStream(live, reg, corpus.docs,
+                                        rate=MUTATION_RATE,
+                                        merge_every=MERGE_EVERY,
+                                        noise=NOISE)
+                rb = Rebuilder(live, reg, mgr, n_iters=DRILL_ITERS,
+                               on_publish=stream.on_publish)
+                rb.request("deadline-throttle")
+                clock = SimClock()
+                ws = WaveScheduler(index, wave_size=B, chunk=CHUNK, k=K,
+                                   n_probe=N_PROBE, delta=DELTA, phi=PHI,
+                                   registry=reg, rebuilder=rb,
+                                   deadline_ms=dl, clock=clock)
+
+                def on_wave(w):
+                    clock.advance(SIM_WAVE_MS)
+                    stream(w)
+
+                rep = ws.serve(queries, on_wave=on_wave)
+                wal.close()
+            if sorted(rep.results) != list(range(queries.shape[0])):
+                raise AssertionError("the throttle serve did not answer "
+                                     "every query once")
+            rows[dl] = dict(
+                deadline_ms=dl, waves=rep.waves,
+                rebuild_ticks=rep.rebuild_ticks,
+                rebuild_throttled=rep.rebuild_throttled,
+                epoch_swaps=rep.epoch_swaps, drain_waves=rep.drain_waves,
+                rebuilds=rb.epochs_published,
+                degraded_fraction=rep.degraded_fraction, **stream.stats)
+            print(json.dumps(rows[dl]))
+        ctx.sync()
+        ctx.read("throttle serves (fused, registry, WAL, rebuild)",
+                 ["ivf_scan_merge+delta"],
+                 absent=["ivf_scan_merge", "delta_scan", "ivf_scan",
+                         "topk_merge"])
+        tight, free = rows[deadline], rows[None]
+        if tight["rebuild_throttled"] <= 0:
+            raise AssertionError(f"a {deadline} ms budget paused no "
+                                 f"rebuild tick: {tight}")
+        if free["rebuild_throttled"] or free["rebuild_ticks"] <= 0:
+            raise AssertionError(f"the unbounded serve throttled or did "
+                                 f"not tick: {free}")
+    return rows
+
+
+def shard_retry(ctx, index, queries, exact, static_recall):
+    """Phase ``shard_retry``: the main path's index dealt over N_SHARDS
+    shards (``shard_index``, on the host) and searched by
+    ``search_with_retry`` at n_probe N_PROBE on the card (plain scoring:
+    the shards' lists are not ``blk_l``-aligned, so no list kernel
+    applies).  The clean run's R*@k is printed beside the static
+    serve's; a flaky shard whose retries succeed answers as the clean
+    run bit for bit; a dead shard is skipped with its non-empty lists
+    lost; a budget that runs dry skips shards without waiting."""
+    import numpy as np
+    from repro_torch.core import metrics
+    from repro_torch.core.distributed_ivf import (ShardFault,
+                                                  search_with_retry,
+                                                  shard_index)
+    from repro_torch.runtime.straggler import RetryPolicy
+
+    def flaky(shard, attempt):
+        if shard == 1 and attempt < 2:
+            raise ShardFault("flaky shard 1")
+
+    def dead(shard, attempt):
+        if shard == 0:
+            raise ShardFault("shard 0 is gone")
+
+    def all_dead(shard, attempt):
+        raise ShardFault(f"shard {shard} is gone")
+
+    with ctx.phase("shard_retry"):
+        t0 = time.perf_counter()
+        sh = shard_index(index, N_SHARDS)
+        shard_s = time.perf_counter() - t0
+        slept = []
+
+        def run(**kw):
+            ctx.sync()
+            t1 = time.perf_counter()
+            out = search_with_retry(sh, queries, k=K, n_probe=N_PROBE,
+                                    sleep=slept.append, device=ctx.dev,
+                                    **kw)
+            ctx.sync()
+            return out + ((time.perf_counter() - t1) * 1000,)
+
+        ctx.reset()
+        s0, i0, rep0, ms0 = run()
+        ctx.read("search_with_retry (plain scoring)", [],
+                 absent=list(ctx.counter_names))
+        recall = metrics.r_star_at_k(i0, exact)
+        print(json.dumps(dict(
+            shards=N_SHARDS, rows_per_shard=sh.docs.shape[1],
+            shard_index_s=shard_s, clean_ms=ms0, recall_clean=recall,
+            recall_static_serve=static_recall, attempts=rep0.attempts)))
+        if rep0.retries or rep0.skipped_shards:
+            raise AssertionError(f"the clean run retried: {rep0}")
+        s1, i1, rep1, _ = run(retry=RetryPolicy(max_retries=3), fault=flaky)
+        if not (np.array_equal(i1, i0) and np.array_equal(s1, s0)) \
+                or rep1.retries != 2 or rep1.skipped_shards:
+            raise AssertionError(f"a flaky shard's retries changed the "
+                                 f"answer: {rep1}")
+        _, i2, rep2, _ = run(retry=RetryPolicy(max_retries=2), fault=dead)
+        lost = int((sh.sizes[0] > 0).sum())
+        if rep2.skipped_shards != [0] or rep2.lost_clusters != lost \
+                or not (i2 >= 0).all():
+            raise AssertionError(f"the dead shard: {rep2}, want "
+                                 f"{lost} lost lists")
+        _, _, rep3, _ = run(retry=RetryPolicy(max_retries=3, base_ms=4.0,
+                                              budget_ms=10.0),
+                            fault=all_dead)
+        if rep3.budget_skips <= 0 or not rep3.budget_exhausted:
+            raise AssertionError(f"the budget never ran dry: {rep3}")
+        print(json.dumps(dict(
+            flaky=dict(retries=rep1.retries, backoff_ms=rep1.backoff_ms),
+            dead=dict(skipped=rep2.skipped_shards,
+                      lost_clusters=rep2.lost_clusters,
+                      recall=metrics.r_star_at_k(i2, exact)),
+            budget=dict(skipped=rep3.skipped_shards,
+                        budget_skips=rep3.budget_skips,
+                        backoff_ms=rep3.backoff_ms))))
+    return recall
+
+
+def check_chaos_artifact(d):
+    """The assertions of ``make chaos-smoke`` and the resilience part of
+    ``make bench-smoke`` on a ``BENCH_resilience_torch.json``."""
+    if not (d["recovery"]["bit_identical"] and d["recovery"]["crashes"] > 0
+            and len(d["deadline_curve"]) > 0
+            and d["shard_faults"]["attempts"] > 0):
+        raise AssertionError(f"chaos-smoke: {d['recovery']}, "
+                             f"{d['shard_faults']}")
+    rb = d["rebuild"]
+    bs = rb["crash_boundaries"]
+    sr, dr = rb["swap_race"], rb["drift"]
+    ok = (len(bs) == 6 and all(b["bit_identical"] for b in bs)
+          and {"aborted", "committed"} == {b["resolution"] for b in bs}
+          and sr["fenced"] and sr["lost_mutations"] == 0
+          and sr["recovered_bit_identical"]
+          and dr["rebuilds_triggered"] > 0 and dr["recall_restored"])
+    keys = (all({"failpoint", "resolution", "bit_identical", "recovery_ms"}
+                <= b.keys() for b in bs)
+            and {"fenced", "lost_mutations", "recovered_bit_identical"}
+            <= sr.keys()
+            and {"recall_fixed", "recall_rebuilt", "rebuilds_triggered",
+                 "recall_restored"} <= dr.keys())
+    if not (ok and keys):
+        raise AssertionError(f"chaos-smoke/bench-smoke on the rebuild "
+                             f"drills: {rb}")
+
+
+def chaos_phase(ctx, drill):
+    """Phase ``chaos``: ``run_chaos`` (its default ``ChaosConfig``) on the
+    drills' substrate at k K and n_probe N_PROBE, its payload written as
+    ``BENCH_resilience_torch.json`` into a temporary directory with the
+    backend, the card's name and its power limit, read back and held to
+    ``make chaos-smoke`` and bench-smoke's resilience assertions."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.benchmarks.common import device_info
+    from repro_torch.core import brute_force
+    from repro_torch.runtime.chaos import ChaosConfig, run_chaos
+
+    corpus, index, queries = drill
+    with ctx.phase("chaos"), tempfile.TemporaryDirectory() as tmp:
+        exact = brute_force(torch.from_numpy(corpus.docs).to(ctx.dev),
+                            queries, K)[1].cpu().numpy()
+        ctx.reset()
+        payload = run_chaos(index, corpus.docs, corpus.queries, exact,
+                            ChaosConfig(), tmp, k=K, n_probe=N_PROBE)
+        ctx.sync()
+        ctx.read("run_chaos (drills: kernel pair and fused, live index)",
+                 ["ivf_scan_merge", "ivf_scan_merge+delta", "ivf_scan",
+                  "topk_merge", "delta_scan"])
+        payload.update(device_info(ctx.dev))
+        out = os.path.join(tmp, "BENCH_resilience_torch.json")
+        with open(out, "w") as f:
+            json.dump(payload, f, indent=2)
+        with open(out) as f:
+            d = json.load(f)
+        check_chaos_artifact(d)
+        name, limit = (x.strip() for x in card_line().rsplit(",", 1))
+        want = dict(backend="cuda", device=torch.cuda.get_device_name(0),
+                    power_limit=limit)
+        got = {key: d.get(key) for key in want}
+        if got != want:
+            raise AssertionError(f"chaos artifact names {got}, not {want}")
+        print(json.dumps({key: d[key] for key in (
+            "recovery", "deadline_curve", "shard_faults", "wall_s")}))
+        print(json.dumps({"rebuild": {
+            "crash_boundaries": [{key: b[key] for key in (
+                "failpoint", "resolution", "recovery_ms", "bit_identical")}
+                for b in d["rebuild"]["crash_boundaries"]],
+            "swap_race": d["rebuild"]["swap_race"],
+            "drift": d["rebuild"]["drift"]}}))
+    return d
+
+
+def serving_bench_smoke(ctx):
+    """Phase ``serving_bench_smoke``: ``serving_bench.main(smoke=True)``
+    on the card (its substrate cached and its JSON written in a
+    temporary directory): the live stream's ``recall_gap`` within
+    RECALL_GAP_MAX, the fused row's mean probes the compact row's, the
+    artifact naming the backend, the card and its power limit."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.benchmarks import common, serving_bench
+
+    with ctx.phase("serving_bench_smoke"), \
+            tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "BENCH_serving_torch.json")
+        cache, common.CACHE = common.CACHE, os.path.join(tmp, "cache")
+        try:
+            ctx.reset()
+            rows = serving_bench.main(smoke=True, out=out)
+            ctx.sync()
+        finally:
+            common.CACHE = cache
+        ctx.read("serving_bench.main(smoke=True)",
+                 ["ivf_scan_merge", "ivf_scan_merge+delta", "ivf_scan",
+                  "topk_merge"])
+        with open(out) as f:
+            art = json.load(f)
+        name, limit = (x.strip() for x in card_line().rsplit(",", 1))
+        want = dict(backend="cuda", device=torch.cuda.get_device_name(0),
+                    power_limit=limit)
+        got = {key: art.get(key) for key in want}
+        if got != want:
+            raise AssertionError(f"serving artifact names {got}, not "
+                                 f"{want}")
+        gap = art["live_stream"]["recall_gap"]
+        if gap > RECALL_GAP_MAX:
+            raise AssertionError(f"live-stream recall gap {gap} > "
+                                 f"{RECALL_GAP_MAX}")
+        if rows["fused"]["mean_probes"] != rows["compact"]["mean_probes"]:
+            raise AssertionError("the fused row's mean probes differ from "
+                                 "the compact row's")
+        print(json.dumps({tag: {key: r[key] for key in (
+            "occupancy", "waves", "mean_probes", "recall", "wall_s")}
+            for tag, r in rows.items() if isinstance(r, dict)}))
+        print(f"serving_bench.main(smoke=True) on {name} ({limit}): "
+              f"recall_gap {gap}, speedup {rows['speedup']}")
     return rows
 
 
@@ -1662,6 +2134,7 @@ def main() -> None:
     # what the model-zoo phases need of this run (see lm_serve)
     ctx = SimpleNamespace(
         dev=dev, sync=sync, phase=phase, max_err=max_err,
+        counter_names=tuple(counters),
         reset=reset_launches, read=read_launches, time_call=time_call,
         reset_peak=lambda: torch.cuda.reset_peak_memory_stats(dev),
         peak=lambda: torch.cuda.max_memory_allocated(dev),
@@ -2444,10 +2917,20 @@ def main() -> None:
               f"{float(np.median(pub_ms)):.3f} over 10 (min "
               f"{min(pub_ms):.3f}, max {max(pub_ms):.3f})")
 
+    # -- 6b. resilience: deadline serves at full width, the rebuild
+    # throttle, shard retry, the chaos drills, the serving benchmark -----
+    deadline_phases(ctx, index, queries, exact, rep)
+    drill = drill_substrate(ctx)
+    deadline_throttle(ctx, drill)
+    shard_retry(ctx, index, queries, exact,
+                metrics.r_star_at_k(served, exact))
+    chaos_phase(ctx, drill)
+    serving_bench_smoke(ctx)
+
     # -- 7. durability: WAL, snapshots, rebuilds, recovery, after the
     # profiled phases (the profiler's sessions all precede this work) ----
     durable_serve(ctx, index, corpus.docs, queries, served, exact, wall_l)
-    rebuild_crash_drills(ctx)
+    rebuild_crash_drills(ctx, drill)
     kernel_bench_phase(ctx)
 
     kernels = []

@@ -11,13 +11,15 @@ One :class:`Policy` configures the adaptive search:
 
 The learned stages' trees (``reg``, ``clf``) are tensors on one device;
 ``search`` runs them where the index lies and refuses trees that lie
-elsewhere.
+elsewhere.  The deadline :class:`DegradationLadder` of the wave
+scheduler lives here too, on the host in NumPy, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.features import base_columns
@@ -92,6 +94,82 @@ def cascade_regression(n_probe: int, clf: TreeEnsemble, reg: TreeEnsemble,
                   use_reg=True, reg_with_intersections=True, clf=clf,
                   reg=reg, min_probes=tau, clf_threshold=float(threshold),
                   name="cascade+reg")
+
+
+# -- deadline degradation ladder -------------------------------------------
+#
+# Early exit is the natural graceful-degradation actuator: each rung
+# trades a little effectiveness for bounded latency instead of blowing
+# the deadline.  Rungs are ordered by severity; the scheduler walks up
+# as a lane's remaining budget (measured in estimated wave costs)
+# shrinks:
+#
+#   0 NONE     full patience, full probe budget
+#   1 TIGHTEN  patience delta clamped to ``tight_delta`` (exit sooner)
+#   2 CAP      remaining probes capped to what the budget still affords
+#   3 FORCE    lane force-exited now with its partial top-k
+#
+# A 4th, outside the lane state machine: when even a *fresh* query
+# cannot meet the deadline (estimated wave cost exceeds it), admissions
+# are shed ("shed" reason) instead of being enqueued to certain death.
+
+RUNG_NONE, RUNG_TIGHTEN, RUNG_CAP, RUNG_FORCE = 0, 1, 2, 3
+
+#: reason strings recorded in ``ServeReport.degraded``, by severity
+DEGRADE_REASONS = ("tightened_patience", "capped_probes", "forced_exit",
+                   "shed")
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradationLadder:
+    """Maps a lane's remaining deadline budget to a degradation rung.
+
+    Thresholds are in units of the scheduler's current per-wave cost
+    estimate, so the ladder adapts to load: under a latency spike every
+    lane's effective budget shrinks and the rungs fire earlier.
+    """
+    tighten_at: float = 3.0      # remaining < 3 wave costs -> rung 1
+    cap_at: float = 1.5          # remaining < 1.5 wave costs -> rung 2
+    force_at: float = 0.0        # remaining <= 0 wave costs -> rung 3
+    tight_delta: int = 1         # patience delta while on rung >= 1
+    rebuild_pause_at: float = 4.0  # pause background rebuild ticks when
+    #                                any lane's remaining budget drops
+    #                                below this many wave costs
+
+    def __post_init__(self):
+        if not (self.force_at <= self.cap_at <= self.tighten_at):
+            raise ValueError(
+                f"ladder thresholds must be ordered force_at <= cap_at "
+                f"<= tighten_at, got {self.force_at}/{self.cap_at}/"
+                f"{self.tighten_at}")
+
+    def rungs(self, remaining_ms: np.ndarray,
+              wave_cost_ms: float) -> np.ndarray:
+        """(W,) remaining budget -> (W,) int rung (vectorised)."""
+        r = np.asarray(remaining_ms, np.float64) / max(wave_cost_ms, 1e-9)
+        out = np.full(r.shape, RUNG_NONE, np.int8)
+        out[r < self.tighten_at] = RUNG_TIGHTEN
+        out[r < self.cap_at] = RUNG_CAP
+        out[r <= self.force_at] = RUNG_FORCE
+        return out
+
+    def throttle_rebuild(self, remaining_ms: np.ndarray,
+                         wave_cost_ms: float) -> bool:
+        """Should background rebuild work pause this wave?
+
+        True when ANY active lane's remaining deadline budget is below
+        ``rebuild_pause_at`` wave costs: a retrain/re-layout stage
+        stalls the serving thread for roughly a wave's worth of work,
+        so it must not run while a lane is close enough to its
+        deadline that the stall would push it onto a degradation rung.
+        An empty ``remaining_ms`` (no active lanes, or no deadline)
+        never throttles.
+        """
+        r = np.asarray(remaining_ms, np.float64)
+        if r.size == 0:
+            return False
+        return bool((r / max(wave_cost_ms, 1e-9)
+                     < self.rebuild_pause_at).any())
 
 
 # -- step -------------------------------------------------------------------

@@ -15,14 +15,16 @@ scheduler serves the live index: it adopts the registry's current
 version between waves, scrubs tombstoned ids out of running top-k
 state, and drains in-flight lanes before adopting a new epoch.  With a
 ``rebuilder`` (``repro_torch.index.Rebuilder``) it runs one background
-rebuild stage between waves.  Deadlines (the degradation ladder, which
-throttles those ticks in the reference) come with the serving slice of
-the port.
+rebuild stage between waves.  With a ``deadline_ms`` it budgets every
+query from its admission and walks the degradation ladder
+(``core.policies.DegradationLadder``) instead of blowing the budget,
+and pauses those rebuild ticks while a lane is close to its deadline.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +36,9 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, _as_queries,
                                   check_same_device, index_device,
                                   intersection_pct, top_k,
                                   validate_alignment)
+from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
+                                       RUNG_TIGHTEN, DegradationLadder)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ivf_scan import score_rows
 
 
 class LaneState(NamedTuple):
@@ -92,18 +95,28 @@ def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
 
 def _advance(index: IVFIndex, state: LaneState,
              dview: Optional[DeltaView] = None,
-             dead: Optional[torch.Tensor] = None, *, lane_delta: int,
-             lane_cap: int, chunk: int, k: int, n_probe: int, phi: float,
+             dead: Optional[torch.Tensor] = None, *,
+             lane_delta: torch.Tensor, lane_cap: torch.Tensor, chunk: int,
+             k: int, n_probe: int, phi: float,
              use_fused: bool = True) -> LaneState:
     """Advance every active lane by up to ``chunk`` probes.
 
-    ``lane_delta``/``lane_cap`` are the exit knobs — the patience
-    threshold and the probe budget.  (The reference takes them per lane
-    for its deadline ladder, which comes with the serving slice.)  The
-    fused path issues ONE ``ivf_scan_merge`` launch
-    for the whole chunk and rolls lane state forward slot by slot from
-    the kernel's per-probe snapshots, so mid-chunk exits land on the
-    exact probe they would on the per-probe path.
+    ``lane_delta``/``lane_cap`` are per-lane (W,) int32 exit knobs on
+    the lanes' device: the patience threshold and the probe budget.
+    Without a deadline both are constant (the scheduler's
+    ``delta``/``n_probe``); under deadline pressure the degradation
+    ladder lowers them per lane, so a struggling lane exits earlier
+    while its neighbours run the full policy.  The fused path issues ONE
+    ``ivf_scan_merge`` launch for the whole chunk and rolls lane state
+    forward slot by slot from the kernel's per-probe snapshots, so
+    mid-chunk exits land on the exact probe they would on the per-probe
+    path.  Its slots are budgeted by ``n_probe``, not ``lane_cap``: a
+    capped lane's later slots are scanned and then discarded by the
+    slot roll, so fused stays equal to per-probe.  The per-probe path
+    runs the kernel pair (``ivf_scan`` + ``topk_merge``; their plain
+    versions on the CPU): on the card only the pair scores and ranks in
+    the fused kernel's order, so the two paths agree bit for bit there
+    too.
 
     ``dview``/``dead`` (live index, ``repro_torch.index``): delta
     entries are scored once per wave — inside the fused kernel, or by
@@ -167,17 +180,25 @@ def _advance(index: IVFIndex, state: LaneState,
     for _ in range(chunk):
         hv = st.h.clamp(max=n_probe - 1).long()
         cids = torch.gather(st.cluster_rank, 1, hv[:, None])[:, 0]
-        rows, ids, mask = _probe_rows(index, cids)
-        sc = torch.where(mask, score_rows(st.qvec, index.docs, rows),
-                         float("-inf"))
+        _, ids, _ = _probe_rows(index, cids)
+        sc = kops.ivf_scan(st.qvec, index.docs, index.cluster_offsets[cids],
+                           index.cluster_sizes[cids],
+                           list_pad=index.list_pad)
+        sc = torch.where(ids >= 0, sc, float("-inf"))
         if dview is not None:
             gate = d_valid & (dview.assign[None, :] == cids[:, None])
             sc = torch.cat([sc, torch.where(gate, d_sc, float("-inf"))], 1)
             ids = torch.cat([ids, torch.where(gate, d_ids, -1)], 1)
-        ms, mi = _merge_topk(st.topk_scores, st.topk_ids, sc, ids, k)
+        ms, mi = _merge_topk(st.topk_scores, st.topk_ids, sc, ids, k,
+                             use_kernel=True)
         ti = torch.where(st.active[:, None], mi, st.topk_ids)
         st = slot(st, ms, mi, intersection_pct(st.topk_ids, ti))
     return st
+
+
+#: ordering of degradation reasons — a stronger rung overwrites a weaker
+_REASON_RANK = {"tightened_patience": 1, "capped_probes": 2,
+                "forced_exit": 3, "shed": 4}
 
 
 @dataclasses.dataclass
@@ -187,10 +208,23 @@ class ServeReport:
     waves: int
     occupancy: float            # mean fraction of busy lanes per wave
     lane_steps: int             # total lane-probe slots spent
+    # -- deadline/degradation accounting (empty when deadline_ms unset) --
+    degraded: Dict[int, str] = dataclasses.field(default_factory=dict)
+    latency_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
+    deadline_ms: Optional[float] = None
+    wave_cost_ms: float = 0.0   # final EMA of per-wave cost
+    # -- background rebuild accounting (zero without a rebuilder) --
     epoch_swaps: int = 0        # higher-epoch versions adopted (drained)
     drain_waves: int = 0        # waves spent draining before a swap
     rebuild_ticks: int = 0      # rebuild stages run between waves
-    rebuild_throttled: int = 0  # ticks skipped (no deadline ladder: 0)
+    rebuild_throttled: int = 0  # ticks skipped under deadline pressure
+
+    @property
+    def degraded_fraction(self) -> float:
+        return len(self.degraded) / max(len(self.results), 1)
+
+    def shed_ids(self) -> List[int]:
+        return [q for q, r in self.degraded.items() if r == "shed"]
 
 
 class WaveScheduler:
@@ -213,17 +247,31 @@ class WaveScheduler:
 
     ``rebuilder`` (optional, ``repro_torch.index.Rebuilder``): while it
     is armed, the scheduler runs ONE rebuild pipeline stage after each
-    wave.
+    wave — unless the degradation ladder's ``throttle_rebuild`` says a
+    lane is too close to its deadline to absorb the stall.
     """
 
     def __init__(self, index: IVFIndex, *, wave_size: int = 64,
                  chunk: int = 8, k: int = 100, n_probe: int = 80,
                  delta: int = 7, phi: float = 95.0, use_fused: bool = True,
-                 registry=None, rebuilder=None,
-                 device: DeviceLike = None):
+                 registry=None, deadline_ms: Optional[float] = None,
+                 ladder: Optional[DegradationLadder] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 rebuilder=None, device: DeviceLike = None):
+        """``deadline_ms``: per-query latency budget, counted from lane
+        admission.  When set, the scheduler walks the
+        :class:`repro_torch.core.policies.DegradationLadder` instead of
+        blowing the budget: tighten patience -> cap remaining probes ->
+        force-exit with the partial top-k -> shed admissions.  Every
+        affected query carries a reason in ``ServeReport.degraded``.
+
+        ``clock``: ms-resolution monotonic clock (injectable for
+        deterministic tests and the chaos harness); defaults to
+        ``time.monotonic() * 1000``.
+        """
         self.device = index_device(index, device)
-        if use_fused:
-            validate_alignment(index)
+        # both paths read blk_l-aligned lists through the kernels
+        validate_alignment(index)
         self.index = index
         self.w = wave_size
         self.chunk = chunk
@@ -233,6 +281,9 @@ class WaveScheduler:
         self.phi = phi
         self.use_fused = use_fused
         self.registry = registry
+        self.deadline_ms = deadline_ms
+        self.ladder = ladder or DegradationLadder()
+        self._now = clock or (lambda: time.monotonic() * 1000.0)
         self.rebuilder = rebuilder
         self._pinned = None        # version lanes are probing against
 
@@ -264,6 +315,12 @@ class WaveScheduler:
                           ver.index.docs)
         return ver.index, ver.delta, ver.dead
 
+    @staticmethod
+    def _flag(degraded: Dict[int, str], qid: int, reason: str) -> None:
+        old = degraded.get(qid)
+        if old is None or _REASON_RANK[reason] > _REASON_RANK[old]:
+            degraded[qid] = reason
+
     def serve(self, queries, *, compact: bool = True,
               on_wave: Optional[Callable[[int], None]] = None
               ) -> ServeReport:
@@ -275,16 +332,28 @@ class WaveScheduler:
         next_q = 0
         results: Dict[int, np.ndarray] = {}
         probes: Dict[int, int] = {}
+        degraded: Dict[int, str] = {}
+        latency: Dict[int, float] = {}
         waves = 0
         occ = []
         lane_steps = 0
-        epoch_swaps = drain_waves = rebuild_ticks = 0
+        epoch_swaps = drain_waves = 0
+        rebuild_ticks = rebuild_throttled = 0
         prev_active = np.zeros(self.w, bool)
+        # qid is constant across an advance: the qids read after
+        # admission are the lanes' qids at the next wave's top
         prev_qids = np.full(self.w, -1, np.int32)
+        lane_admit = np.zeros(self.w, np.float64)   # admit timestamp, ms
+        full_delta = torch.full((self.w,), self.delta, dtype=torch.int32,
+                                device=self.device)
+        full_cap = torch.full((self.w,), self.n, dtype=torch.int32,
+                              device=self.device)
+        wave_cost = 0.0                              # EMA of wave ms
         self._pinned = None if self.registry is None \
             else self.registry.current()
         while True:
             active = state.active.cpu().numpy()
+            now = self._now()
             # harvest exits: lanes that flipped active->inactive
             done = np.nonzero(prev_active & ~active)[0]
             if done.size:
@@ -295,21 +364,80 @@ class WaveScheduler:
                     qid = int(prev_qids[lane])
                     results[qid] = ids[j]
                     probes[qid] = int(hs[j])
+                    latency[qid] = now - lane_admit[lane]
             # epoch-fenced version adoption
             draining, swapped = self._refresh_pin(bool(active.any()))
             epoch_swaps += swapped
             drain_waves += draining
+            # degradation ladder (deadline-budgeted serving)
+            lane_delta, lane_cap = full_delta, full_cap
+            if self.deadline_ms is not None:
+                remaining = self.deadline_ms - (now - lane_admit)
+                rungs = self.ladder.rungs(remaining, max(wave_cost, 1e-9))
+                rungs = np.where(active, rungs, RUNG_NONE)
+                if (rungs > RUNG_NONE).any():
+                    # one read of h a wave, one of the forced lanes' top-k
+                    h_np = state.h.cpu().numpy()
+                    force = active & (rungs == RUNG_FORCE)
+                    if force.any():
+                        lanes = np.nonzero(force)[0]
+                        tid = state.topk_ids[torch.as_tensor(
+                            lanes, device=self.device)].cpu().numpy()
+                        for j, lane in enumerate(lanes):
+                            qid = int(prev_qids[lane])
+                            results[qid] = tid[j]
+                            probes[qid] = int(h_np[lane])
+                            latency[qid] = now - lane_admit[lane]
+                            self._flag(degraded, qid, "forced_exit")
+                        active = active & ~force
+                        state = state._replace(active=torch.as_tensor(
+                            active, device=self.device))
+                    for lane in np.nonzero(active
+                                           & (rungs >= RUNG_TIGHTEN))[0]:
+                        self._flag(degraded, int(prev_qids[lane]),
+                                   "capped_probes" if rungs[lane] >= RUNG_CAP
+                                   else "tightened_patience")
+                    afford = np.floor(
+                        np.maximum(remaining, 0.0)
+                        / max(wave_cost, 1e-9)).astype(np.int64) \
+                        * self.chunk
+                    cap_np = np.where(rungs >= RUNG_CAP, h_np + afford,
+                                      self.n)
+                    cap_np = np.minimum(cap_np, self.n).astype(np.int32)
+                    tight = min(self.ladder.tight_delta, self.delta)
+                    delta_np = np.where(rungs >= RUNG_TIGHTEN, tight,
+                                        self.delta).astype(np.int32)
+                    lane_delta = torch.as_tensor(delta_np,
+                                                 device=self.device)
+                    lane_cap = torch.as_tensor(cap_np, device=self.device)
             index, dview, dead = self._version()
+            # admission (with overload shedding)
             if (compact or not active.any()) and not draining \
                     and next_q < nq and (~active).any():
                 room = int((~active).sum())
-                batch = queries[next_q: next_q + room]
-                qids = torch.arange(next_q, next_q + batch.shape[0],
-                                    dtype=torch.int32, device=self.device)
-                # admissions rank clusters against the epoch they probe
-                state = _admit(state, index.centroids, batch, qids, self.n)
-                next_q += batch.shape[0]
-                active = state.active.cpu().numpy()
+                if self.deadline_ms is not None \
+                        and wave_cost > self.deadline_ms:
+                    # even a fresh query cannot meet the deadline: shed
+                    # instead of admitting to certain death
+                    for qid in range(next_q, min(nq, next_q + room)):
+                        results[qid] = np.full(self.k, -1, np.int32)
+                        probes[qid] = 0
+                        latency[qid] = 0.0
+                        self._flag(degraded, qid, "shed")
+                    next_q = min(nq, next_q + room)
+                else:
+                    batch = queries[next_q: next_q + room]
+                    qids = torch.arange(next_q, next_q + batch.shape[0],
+                                        dtype=torch.int32,
+                                        device=self.device)
+                    # admissions rank clusters against the epoch they
+                    # probe
+                    before = active
+                    state = _admit(state, index.centroids, batch, qids,
+                                   self.n)
+                    next_q += batch.shape[0]
+                    active = state.active.cpu().numpy()
+                    lane_admit[active & ~before] = now
             if not active.any() and next_q >= nq:
                 break
             occ.append(active.mean())
@@ -317,16 +445,36 @@ class WaveScheduler:
             prev_active = active
             prev_qids = state.qid.cpu().numpy()
             state = _advance(index, state, dview, dead,
-                             lane_delta=self.delta, lane_cap=self.n,
+                             lane_delta=lane_delta, lane_cap=lane_cap,
                              chunk=self.chunk, k=self.k, n_probe=self.n,
                              phi=self.phi, use_fused=self.use_fused)
             waves += 1
             if on_wave is not None:
                 on_wave(waves)
+            sample = self._now() - now
+            wave_cost = sample if waves == 1 \
+                else 0.5 * wave_cost + 0.5 * sample
+            # background rebuild tick (throttled under pressure), after
+            # the wave-cost sample so the stall never inflates the EMA
+            # the ladder budgets against
             if self.rebuilder is not None and self.rebuilder.active:
-                self.rebuilder.tick()
-                rebuild_ticks += 1
+                throttle = False
+                if self.deadline_ms is not None:
+                    act_now = state.active.cpu().numpy()
+                    rem = (self.deadline_ms
+                           - (self._now() - lane_admit))[act_now]
+                    throttle = self.ladder.throttle_rebuild(
+                        rem, max(wave_cost, 1e-9))
+                if throttle:
+                    rebuild_throttled += 1
+                else:
+                    self.rebuilder.tick()
+                    rebuild_ticks += 1
         return ServeReport(results, probes, waves,
                            float(np.mean(occ)) if occ else 0.0, lane_steps,
-                           epoch_swaps=epoch_swaps, drain_waves=drain_waves,
-                           rebuild_ticks=rebuild_ticks)
+                           degraded=degraded, latency_ms=latency,
+                           deadline_ms=self.deadline_ms,
+                           wave_cost_ms=wave_cost, epoch_swaps=epoch_swaps,
+                           drain_waves=drain_waves,
+                           rebuild_ticks=rebuild_ticks,
+                           rebuild_throttled=rebuild_throttled)

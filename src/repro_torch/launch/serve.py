@@ -26,13 +26,28 @@ ratio:
     PYTHONPATH=src python -m repro_torch.launch.serve --mutation-rate 64 \
         --merge-every 16 --rebuild-every 16
 
-Runs on the CUDA card unless ``--device cpu`` is given.  The chaos and
-deadline flags of the reference CLI come with the serving slice of the
-port.
+Deadlines: ``--deadline-ms`` serves the stream under a real per-query
+latency budget through the degradation ladder (tighten patience, cap
+probes, force-exit, shed); the summary gains the degraded fraction and
+the final wave-cost estimate, and the live row's ``rebuild_throttled``
+counts the rebuild ticks the ladder paused.
+
+Chaos mode (``repro_torch.runtime.chaos``): ``--chaos`` runs the
+seeded resilience drills — crash + WAL recovery over a mutation
+stream, recall-vs-deadline curve under latency spikes, shard-fault
+retry/skip, and the rebuild crash/race/drift drills — and writes
+``artifacts/BENCH_resilience_torch.json`` with the backend, the
+device's name and its power limit:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --chaos \
+        --n-docs 4000 --queries 64 --clusters 32
+
+Runs on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import tempfile
 import time
@@ -42,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.benchmarks.common import ARTIFACTS, device_info
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import brute_force, build_index, metrics, policies, \
     search
@@ -49,6 +65,7 @@ from repro_torch.core.serving import WaveScheduler
 from repro_torch.data.synthetic import clustered_corpus
 from repro_torch.index import (DeltaFull, DriftTracker, IndexRegistry,
                                LiveIndex, MutationWAL, Rebuilder, version_of)
+from repro_torch.kernels import _build
 
 
 def _sync(dev: torch.device) -> None:
@@ -134,7 +151,7 @@ class MutationStream:
                 rb.request(f"drift>{self.tracker.threshold}")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--policy", default="patience",
                     choices=["fixed", "patience"])
@@ -166,11 +183,34 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                          "rebuild (0 = off): mean nearest-centroid "
                          "distance of added docs vs the build-time "
                          "baseline")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-query latency budget; under pressure the "
+                         "scheduler walks the degradation ladder "
+                         "instead of blowing it")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the seeded resilience drills and write "
+                         "artifacts/BENCH_resilience_torch.json")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--chaos-crash-every", type=int, default=7,
+                    help="inject a crash at every Nth mutation "
+                         "boundary (0 = off)")
+    ap.add_argument("--chaos-shard-fault-rate", type=float, default=0.3)
+    ap.add_argument("--chaos-spike-rate", type=float, default=0.15)
+    ap.add_argument("--chaos-deadlines", default="2,5,10,25",
+                    help="comma-separated deadline_ms sweep")
+    ap.add_argument("--chaos-out", default=None,
+                    help="output JSON path (default "
+                         "artifacts/BENCH_resilience_torch.json)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the plain versions of the kernels)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # build the kernels before any clock starts: a first wave that
+        # compiled them would cost seconds, and under --deadline-ms that
+        # estimate would shed every query
+        _build.library()
 
     t0 = time.time()
     c = clustered_corpus(n_docs=args.n_docs, dim=args.dim,
@@ -185,6 +225,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                            args.k)
     exact = exact.cpu().numpy()
 
+    if args.chaos:
+        from repro_torch.runtime.chaos import ChaosConfig, run_chaos
+        cfg = ChaosConfig(seed=args.chaos_seed,
+                          crash_every=args.chaos_crash_every,
+                          shard_fault_rate=args.chaos_shard_fault_rate,
+                          spike_rate=args.chaos_spike_rate)
+        deadlines = [float(x) for x in
+                     args.chaos_deadlines.split(",") if x]
+        with tempfile.TemporaryDirectory(prefix="chaos_") as workdir:
+            payload = run_chaos(index, c.docs, c.queries, exact, cfg,
+                                workdir, k=args.k, n_probe=args.n_probe,
+                                deadlines_ms=deadlines)
+        payload.update(device_info(dev))
+        out = args.chaos_out or os.path.join(ARTIFACTS,
+                                             "BENCH_resilience_torch.json")
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(json.dumps({"recovery": payload["recovery"],
+                          "shard_faults": payload["shard_faults"]},
+                         indent=2))
+        print(f"wrote {out}")
+        return payload
+
     if args.policy == "fixed":
         res = search(index, queries, policies.fixed(args.n_probe, k=args.k))
         summ = metrics.summarize(res.topk_ids.cpu().numpy(),
@@ -194,12 +258,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         return summ
 
     ws = WaveScheduler(index, wave_size=args.wave_size, chunk=4, k=args.k,
-                       n_probe=args.n_probe, delta=args.delta, phi=args.phi)
+                       n_probe=args.n_probe, delta=args.delta, phi=args.phi,
+                       deadline_ms=args.deadline_ms)
     rep, ids, probes, wall = _serve(ws, queries, dev,
                                     compact=not args.no_compact)
     summ = metrics.summarize(ids, probes, exact, c.relevant, wall)
     summ["occupancy"] = rep.occupancy
     summ["waves"] = rep.waves
+    if args.deadline_ms is not None:
+        summ["degraded_fraction"] = rep.degraded_fraction
+        summ["wave_cost_ms"] = rep.wave_cost_ms
     print({k: round(v, 4) if isinstance(v, float) else v
            for k, v in summ.items()})
     if args.mutation_rate <= 0:
@@ -232,6 +300,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ws_live = WaveScheduler(index, wave_size=args.wave_size, chunk=4,
                             k=args.k, n_probe=args.n_probe,
                             delta=args.delta, phi=args.phi, registry=reg,
+                            deadline_ms=args.deadline_ms,
                             rebuilder=stream.rebuilder)
     rep_l, ids_l, probes_l, wall_l = _serve(
         ws_live, queries, dev, compact=not args.no_compact, on_wave=stream)

@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.models.recsys, repro_torch.configs,"
             " repro_torch.trees, repro_torch.core.training,"
             " repro_torch.benchmarks.table2, repro_torch.benchmarks.figure1,"
-            " repro_torch.benchmarks.clabel_dist;"
+            " repro_torch.benchmarks.clabel_dist,"
+            " repro_torch.runtime.chaos, repro_torch.core.distributed_ivf,"
+            " repro_torch.benchmarks.serving_bench,"
+            " repro_torch.benchmarks.run;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -184,3 +187,30 @@ def test_kernel_wrappers_reject_mixed_devices():
                         torch.zeros(128, 8, **meta),
                         torch.zeros(2, dtype=i32, device="meta"),
                         list_pad=64, blk_l=64)
+
+
+def test_resilience_entry_points_need_a_card_or_an_explicit_cpu(
+        no_card, tmp_path, monkeypatch):
+    from repro_torch.benchmarks import common, run, serving_bench
+    from repro_torch.core.distributed_ivf import (search_with_retry,
+                                                  shard_index)
+    from repro_torch.runtime.chaos import ChaosConfig, run_drift_drill
+
+    sh = shard_index(index_from_arrays(*_tiny_arrays(), device="cpu"), 2)
+    q = np.zeros((2, sh.docs.shape[2]), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        search_with_retry(sh, q, k=4, n_probe=2)
+    assert search_with_retry(sh, q, k=4, n_probe=2,
+                             device="cpu")[1].shape == (2, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_drift_drill(ChaosConfig())
+    monkeypatch.setattr(common, "CACHE", str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving_bench.main(smoke=True, out=str(tmp_path / "s.json"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--chaos", "--n-docs", "500", "--dim", "8",
+                    "--clusters", "4", "--queries", "4",
+                    "--chaos-out", str(tmp_path / "r.json")])
+    assert not list(tmp_path.iterdir())
