@@ -75,7 +75,14 @@ a line of its own:
    snapshots and a rebuild requested before the serve, paused under a
    6 ms budget and ticking without one; the main index in 4 shards by
    ``search_with_retry`` (clean, a flaky shard answering as clean, a
-   dead shard skipped, a backoff budget run dry); ``run_chaos`` on the
+   dead shard skipped, a backoff budget run dry); the mesh search
+   (``make_distributed_search``) on spawned ranks: one NCCL rank over
+   the whole index as one shard (patience at probe width 1 and 4,
+   fixed-N equal to ``search_with_retry``, ``sharded_assign_step`` on
+   2^20 sampled docs bit for bit the Lloyd step) and four gloo ranks on
+   the one card over the 4 shards (fixed-N equal to
+   ``search_with_retry``, patience, int8 docs within 0.02 of fixed-N's
+   R*@1, the (4, 1) assign step equal to one rank's); ``run_chaos`` on the
    drills' substrate, its artifact held to ``make chaos-smoke`` and
    bench-smoke's resilience checks; ``serving_bench.main(smoke=True)``;
 7. durability on the main path's index, after the profiled phases: the
@@ -1833,7 +1840,250 @@ def shard_retry(ctx, index, queries, exact, static_recall):
             budget=dict(skipped=rep3.skipped_shards,
                         budget_skips=rep3.budget_skips,
                         backoff_ms=rep3.backoff_ms))))
-    return recall
+    return recall, sh
+
+
+MESH_SAMPLE_ROWS = 1 << 20     # sharded_assign_step's rows (sampled docs)
+INT8_RECALL_GAP = 0.02         # the reference test's int8 bound (0.98)
+CENTROID_RTOL = 1e-5           # the (4, 1) Lloyd step against one rank's
+MESH_TIMEOUT, MESH_DEADLINE = 120.0, 600.0   # s: a collective, a launch
+SHARD_KEYS = ("centroids", "docs", "doc_ids", "offsets", "sizes")
+
+
+def mesh_rank(rank, world, cfg):
+    """One rank of the ``mesh_search`` phase (spawned by
+    ``launch.mesh.launch``; ``cfg`` carries every setting, since a
+    spawned rank imports this module afresh).  It reads its own shard of
+    the ``.npy`` stacks in ``cfg["dir"]`` (memory-mapped; the queries and
+    the assign step's rows and centroids in ``cfg["common"]``), runs the mesh
+    search's rows on a (1, S) mesh and ``sharded_assign_step`` on an
+    (S, 1) mesh, and returns their results, wall ms and steps."""
+    from pathlib import Path as P_
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed_ivf import (ShardedIVF, local_shard,
+                                                  make_distributed_search,
+                                                  quantize_sharded)
+    from repro_torch.core.kmeans import (_assign_block, _update,
+                                         sharded_assign_step)
+    from repro_torch.launch.mesh import axis_group, local_block, \
+        make_local_mesh
+
+    if dist.get_backend() != cfg["backend"]:
+        raise AssertionError(f"backend {dist.get_backend()}")
+    d = P_(cfg["dir"])
+    dev = torch.device(cfg["device"])
+    n = cfg["shards"]
+    mm = {key: np.load(d / f"{key}.npy", mmap_mode="r") for key in SHARD_KEYS}
+    mesh = make_local_mesh(1, n)
+    loc = local_shard(ShardedIVF(*(mm[key] for key in SHARD_KEYS),
+                                 cfg["list_pad"], n), mesh)
+    common = P_(cfg["common"])
+    queries = torch.as_tensor(np.load(common / "queries.npy"), device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def place(sh):
+        blocks = [getattr(sh, key) for key in SHARD_KEYS]
+        if sh.doc_scales is not None:
+            blocks.append(sh.doc_scales)
+        return [torch.as_tensor(x, device=dev) for x in blocks]
+
+    def timed(fn, *args):
+        fn(*args)                       # warm-up
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        return out, (time.perf_counter() - t0) * 1000
+
+    f32 = place(loc)
+    out = {}
+    for name, kw in cfg["rows"].items():
+        arrays = f32
+        if kw.get("int8_docs"):
+            arrays = place(quantize_sharded(loc))
+        fn = make_distributed_search(
+            mesh, n_probe=cfg["n_probe"], k=cfg["k"],
+            list_pad=cfg["list_pad"], device=dev, **kw)
+        (s, i, p), ms = timed(fn, *arrays[:5], queries, *arrays[5:])
+        if not all(t.device == dev for t in (s, i, p)):
+            raise AssertionError(f"{name}: results off {dev}")
+        out[name] = dict(ms=ms, stats=fn.stats, scores=s.cpu().numpy(),
+                         ids=i.cpu().numpy(), probes=p.cpu().numpy())
+    del f32, arrays
+    amesh = make_local_mesh(n, 1)
+    x = torch.as_tensor(np.array(local_block(
+        np.load(common / "x.npy", mmap_mode="r"),
+        axis_group(amesh, "data"))), device=dev)
+    c = torch.as_tensor(np.load(common / "c.npy"), device=dev)
+    (new, assign), ms = timed(sharded_assign_step(amesh), x, c)
+    out["assign"] = dict(ms=ms, rows=x.shape[0], new=new.cpu().numpy(),
+                         assign=assign.cpu().numpy())
+    if n == 1:
+        want = _update(x, _assign_block(x, c)[0], c)
+        out["assign"]["lloyd_bit_for_bit"] = bool(torch.equal(new, want))
+    return out
+
+
+def mesh_search(ctx, index, corpus, queries, exact, static, shards4):
+    """Phase ``mesh_search``: ``make_distributed_search`` and
+    ``sharded_assign_step`` on ranks spawned by ``launch.mesh.launch``,
+    on the main path's index and queries.  The shards go to the ranks
+    as ``.npy`` stacks in a temporary directory, each rank reading only
+    its own block.  (a) One NCCL rank, mesh (1, 1), over
+    ``shard_index(index, 1)``: patience at probe width 1 and 4 beside
+    the static serve; fixed-N against ``search_with_retry`` on the same
+    shard (ids equal up to near-tie swaps, scores within ATOL);
+    ``sharded_assign_step`` on MESH_SAMPLE_ROWS sampled docs x
+    N_CLUSTERS centroids, bit for bit the port's Lloyd step.  (b) Four
+    gloo ranks on the one card (collectives staged through host memory),
+    mesh (1, 4), over the ``shard_retry`` phase's 4 shards: fixed-N
+    against ``search_with_retry``, patience, int8 (``quantize_sharded``,
+    R*@1 within INT8_RECALL_GAP of fixed-N's), and the (4, 1) assign
+    step equal to (a)'s.  The mesh path runs no kernel of the port: the
+    reference's mesh gathers and multiplies outside Pallas too."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import metrics
+    from repro_torch.core.distributed_ivf import (search_with_retry,
+                                                  shard_index)
+    from repro_torch.launch.mesh import launch
+
+    card = card_line()
+    on_card = ctx.dev.type == "cuda"
+    patience = dict(patience_delta=DELTA, patience_phi=PHI)
+
+    def write(d, sh):
+        for key in SHARD_KEYS:
+            np.save(os.path.join(d, f"{key}.npy"), getattr(sh, key))
+
+    def run(d, shards, backend, rows):
+        cfg = dict(dir=d, common=d1, shards=shards, backend=backend,
+                   device=str(ctx.dev) if on_card else "cpu", rows=rows,
+                   n_probe=N_PROBE, k=K, list_pad=LIST_PAD)
+        t0 = time.perf_counter()
+        outs = launch(mesh_rank, shards, cfg, backend=backend,
+                      device="cuda" if on_card else "cpu",
+                      timeout=MESH_TIMEOUT, deadline=MESH_DEADLINE)
+        launch_s = time.perf_counter() - t0
+        for o in outs[1:]:              # the whole result on every rank
+            for name in rows:
+                for key in ("ids", "probes", "scores"):
+                    if not np.array_equal(o[name][key], outs[0][name][key]):
+                        raise AssertionError(f"{name}: ranks differ on "
+                                             f"{key}")
+        return outs, launch_s
+
+    def report(label, name, o):
+        ids = o["ids"]
+        print(json.dumps(dict(
+            mesh=label, row=name, wall_ms=o["ms"], steps=o["stats"]["steps"],
+            ms_per_step=o["ms"] / o["stats"]["steps"],
+            all_gather_bytes=o["stats"]["gather_bytes"],
+            all_reduce_bytes=o["stats"]["reduce_bytes"],
+            C=float(o["probes"].mean()),
+            **{"R*@1": metrics.r_star_at_1(ids, exact[:, 0]),
+               "R*@k": metrics.r_star_at_k(ids, exact)},
+            static_serve={m: static[m] for m in ("R*@1", "R*@k", "C")},
+            card=card)))
+
+    def against_retry(label, sh, o):
+        ws, wi, rep = search_with_retry(sh, queries, k=K, n_probe=N_PROBE,
+                                        device=ctx.dev)
+        if rep.retries or rep.skipped_shards:
+            raise AssertionError(f"{label}: search_with_retry {rep}")
+        swaps, err = near_tie_swaps(
+            torch.from_numpy(o["scores"]), torch.from_numpy(o["ids"]),
+            torch.from_numpy(ws), torch.from_numpy(wi),
+            f"{label} fixed-N mesh vs search_with_retry")
+        print(json.dumps(dict(mesh=label, fixed_vs_search_with_retry=dict(
+            max_score_err=err, near_tie_id_swaps=swaps), card=card)))
+
+    with ctx.phase("mesh_search"), \
+            tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d4:
+        if on_card:                     # the ranks share this card
+            torch.cuda.empty_cache()
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        sh1 = shard_index(index, 1)
+        x = corpus.docs[rng.integers(0, corpus.docs.shape[0],
+                                     MESH_SAMPLE_ROWS)]
+        c = corpus.docs[rng.choice(corpus.docs.shape[0], N_CLUSTERS,
+                                   replace=False)]
+        np.save(os.path.join(d1, "queries.npy"), queries.cpu().numpy())
+        np.save(os.path.join(d1, "x.npy"), x)
+        np.save(os.path.join(d1, "c.npy"), c)
+        write(d1, sh1)
+        write(d4, shards4)
+        del x
+        print(json.dumps(dict(setup_s=time.perf_counter() - t0,
+                              rows_per_shard_1=sh1.docs.shape[1],
+                              rows_per_shard_4=shards4.docs.shape[1])))
+
+        # (a) one NCCL rank
+        label = "(1,1) nccl" if on_card else "(1,1) gloo"
+        outs, launch_s = run(d1, 1, "nccl" if on_card else "gloo", dict(
+            fixed={}, patience_w1=patience,
+            patience_w4=dict(patience, probe_width=4)))
+        a = outs[0]
+        print(json.dumps(dict(mesh=label, launch_s=launch_s, card=card)))
+        for name in ("patience_w1", "patience_w4", "fixed"):
+            report(label, name, a[name])
+        against_retry(label, sh1, a["fixed"])
+        del sh1
+        if not a["assign"]["lloyd_bit_for_bit"]:
+            raise AssertionError("one rank's sharded_assign_step != the "
+                                 "port's Lloyd step")
+        print(json.dumps(dict(mesh=label, row="sharded_assign_step",
+                              rows=a["assign"]["rows"], centroids=N_CLUSTERS,
+                              wall_ms=a["assign"]["ms"],
+                              lloyd_bit_for_bit=True, card=card)))
+
+        # (b) four gloo ranks on the one card
+        label = "(1,4) gloo"
+        outs, launch_s = run(d4, N_SHARDS, "gloo", dict(
+            fixed={}, patience_w1=patience, int8=dict(int8_docs=True)))
+        b = outs[0]
+        print(json.dumps(dict(mesh=label, launch_s=launch_s,
+                              rank_ms={name: [o[name]["ms"] for o in outs]
+                                       for name in ("fixed", "patience_w1",
+                                                    "int8")},
+                              card=card)))
+        for name in ("fixed", "patience_w1", "int8"):
+            report(label, name, b[name])
+        against_retry(label, shards4, b["fixed"])
+        r_f32 = metrics.r_star_at_1(b["fixed"]["ids"], exact[:, 0])
+        r_int8 = metrics.r_star_at_1(b["int8"]["ids"], exact[:, 0])
+        if abs(r_f32 - r_int8) > INT8_RECALL_GAP:
+            raise AssertionError(f"int8 R*@1 {r_int8} vs f32 {r_f32}")
+        # each centroid within CENTROID_RTOL of its largest coordinate:
+        # four partial sums add in another order than one rank's
+        want = a["assign"]["new"]
+        scale = np.abs(want).max(1, keepdims=True)
+        rel = max(float((np.abs(o["assign"]["new"] - want) / scale).max())
+                  for o in outs)
+        for o in outs:
+            if not np.array_equal(o["assign"]["assign"],
+                                  a["assign"]["assign"]):
+                raise AssertionError("(4,1) assignments != one rank's")
+        if rel > CENTROID_RTOL:
+            raise AssertionError(f"(4,1) centroids off one rank's by {rel}")
+        print(json.dumps(dict(
+            mesh="(4,1) gloo", row="sharded_assign_step",
+            rows_per_rank=b["assign"]["rows"],
+            wall_ms=[o["assign"]["ms"] for o in outs],
+            assign_equal_one_rank=True, max_rel_centroid_err=rel,
+            card=card)))
 
 
 def check_chaos_artifact(d):
@@ -2922,8 +3172,10 @@ def main() -> None:
     deadline_phases(ctx, index, queries, exact, rep)
     drill = drill_substrate(ctx)
     deadline_throttle(ctx, drill)
-    shard_retry(ctx, index, queries, exact,
-                metrics.r_star_at_k(served, exact))
+    _, shards4 = shard_retry(ctx, index, queries, exact,
+                             metrics.r_star_at_k(served, exact))
+    mesh_search(ctx, index, corpus, queries, exact, summ, shards4)
+    del shards4
     chaos_phase(ctx, drill)
     serving_bench_smoke(ctx)
 

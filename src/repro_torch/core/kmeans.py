@@ -6,8 +6,8 @@ stable sort by assignment followed by ``torch.segment_reduce``, which
 adds every segment's rows one after another.  Unlike ``index_add_``
 on CUDA (atomics, an order that changes from run to run) this gives
 the same centroids bit for bit on every run, which ``retrain``
-promises.  The distributed ``sharded_assign_step`` comes with the
-distributed slice.
+promises.  ``sharded_assign_step`` distributes the assignment over the
+``data`` axis of a ``DeviceMesh`` for corpus-scale builds.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.collectives import all_gather, all_reduce
+from repro_torch.launch.mesh import axis_group
 
 
 def _assign_block(x: torch.Tensor, centroids: torch.Tensor,
@@ -34,15 +37,27 @@ def _assign_block(x: torch.Tensor, centroids: torch.Tensor,
     return assign, best
 
 
-def _update(x: torch.Tensor, assign: torch.Tensor,
-            centroids: torch.Tensor) -> torch.Tensor:
-    """One Lloyd update; empty clusters keep their old centroid."""
-    n_clusters = centroids.shape[0]
+def _partial_stats(x: torch.Tensor, assign: torch.Tensor, n_clusters: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each cluster's (sum of rows, count), the rows summed in order."""
     order = torch.sort(assign, stable=True).indices
     counts = torch.bincount(assign, minlength=n_clusters)
     sums = torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
-    new = sums / torch.clamp_min(counts.to(x.dtype), 1.0)[:, None]
+    return sums, counts
+
+
+def _new_centroids(sums: torch.Tensor, counts: torch.Tensor,
+                   centroids: torch.Tensor) -> torch.Tensor:
+    """Means from (sum, count); empty clusters keep their old centroid."""
+    new = sums / torch.clamp_min(counts.to(sums.dtype), 1.0)[:, None]
     return torch.where((counts > 0)[:, None], new, centroids)
+
+
+def _update(x: torch.Tensor, assign: torch.Tensor,
+            centroids: torch.Tensor) -> torch.Tensor:
+    """One Lloyd update; empty clusters keep their old centroid."""
+    return _new_centroids(*_partial_stats(x, assign, centroids.shape[0]),
+                          centroids)
 
 
 def kmeans_fit(x: torch.Tensor, init: torch.Tensor, *, n_clusters: int,
@@ -91,6 +106,30 @@ def retrain(x: torch.Tensor, centroids: torch.Tensor, *, n_iters: int = 4,
                                               device=x.device)
     return kmeans_fit(x, centroids, n_clusters=centroids.shape[0],
                       n_iters=n_iters, block=block)
+
+
+def sharded_assign_step(mesh, data_axis: str = "data"):
+    """The assignment and partial-statistics step of corpus-scale k-means
+    over a ``DeviceMesh``.  Every rank of the mesh calls this and then
+    the returned ``step(x, centroids) -> (new_centroids, assign)`` with
+    its block of rows (``launch.mesh.local_block`` over the data group)
+    and the whole (C, d) centroids: it assigns its rows, computes the
+    partial (sum, count) statistics, all-reduces them over ``data_axis``
+    and returns the global Lloyd update and the whole assignment, on
+    every rank.  On one rank it is ``_update(x, _assign_block(x, c)[0],
+    c)`` bit for bit."""
+    data = axis_group(mesh, data_axis)
+
+    def step(x: torch.Tensor, centroids: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        assign, _ = _assign_block(x, centroids, 4096)
+        sums, counts = _partial_stats(x, assign, centroids.shape[0])
+        sums = all_reduce(sums, data)
+        counts = all_reduce(counts, data)
+        return (_new_centroids(sums, counts, centroids),
+                all_gather(assign, data).reshape(-1))
+
+    return step
 
 
 def split_oversized(x: np.ndarray, centroids: np.ndarray, assign: np.ndarray,

@@ -16,7 +16,7 @@ as the reference does.  ``prefill`` and ``decode_step`` run where the
 params lie; ``init_params`` and ``params_from_numpy`` run on the card
 unless given ``device="cpu"``.  ``decode_step`` writes the cache in
 place.  MLA, MoE, the int8 KV cache and training (``loss_fn``) are not
-ported yet (``ROADMAP.md``, Queue 1 item 11).
+ported yet (``ROADMAP.md``, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -39,15 +39,15 @@ def _check(cfg: TransformerConfig, *, cache: bool = False) -> None:
     if cfg.attn_type != "gqa" or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA and MoE models are not ported yet "
-            f"(ROADMAP.md, Queue 1 item 11)")
+            f"(ROADMAP.md, Queue 1 item 6)")
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.param_dtype} master weights are not ported "
-            f"yet (ROADMAP.md, Queue 1 item 11)")
+            f"yet (ROADMAP.md, Queue 1 item 6)")
     if cache and cfg.kv_cache_dtype != "bfloat16":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache is not ported "
-            f"yet (ROADMAP.md, Queue 1 item 11)")
+            f"yet (ROADMAP.md, Queue 1 item 6)")
 
 
 # ---------------------------------------------------------------------------

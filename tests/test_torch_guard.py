@@ -44,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.benchmarks.table2, repro_torch.benchmarks.figure1,"
             " repro_torch.benchmarks.clabel_dist,"
             " repro_torch.runtime.chaos, repro_torch.core.distributed_ivf,"
+            " repro_torch.launch.mesh, repro_torch.distributed.collectives,"
+            " repro_torch.distributed.embedding,"
             " repro_torch.benchmarks.serving_bench,"
             " repro_torch.benchmarks.run;"
             "bad = sorted(m for m in sys.modules"
