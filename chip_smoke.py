@@ -20,7 +20,7 @@ a line of its own:
    ``flash_attention`` in f32 (within 2e-5) and bf16 (within the
    per-element bound of ``kernels.flash_attention.bf16_bound``: the
    kernel rounds P to bf16), hd 64 and 128, S a tile multiple and not,
-   causal or not;
+   causal or not, and bf16 at MLA's qk 96, v 64 (S 512 and 2,064);
    ``embedding_bag`` bit for bit at D 1, 10, 16 and F 1, 39;
 3. the main path at the paper's widths (``configs/msmarco_ivf``:
    d=768, k=100, N=80, tau=10, patience Delta=7, Phi=95, list_pad=256)
@@ -51,6 +51,20 @@ a line of its own:
    (30 layers, d=3,072, GQA kv=2) prefills 4 x 2,048 Zipf tokens (30
    ``flash_attention`` launches), decodes 16 steps, and both agree with
    ``forward`` over all 2,064 tokens within the reference test's bounds;
+   then the rest of the LM zoo at published widths, the same 4 x 2,048
+   prefill and 16 steps, each freed before the next: MiniCPM3-4B (all
+   62 layers, MLA: the flash kernel at qk 96, v 64, 62 launches a
+   prefill; the latent cache under 1/10 of a GQA cache), Qwen1.5-32B
+   (16 of 64 layers, f32, the int8 KV cache: its bytes against the bf16
+   cache's), DeepSeekMoE-16B (all 28 layers, bf16 master weights) and
+   DBRX (4 of 40 layers, bf16), both MoE configs served at their
+   published capacity factor 1.25 with the dropped assignments counted
+   (and counted again on uniformly drawn tokens), their consistency
+   held in a harness at the drop-free factor E/k where a token whose
+   own routing differs from the forward's must be a near tie and is
+   left out of the bounds; their walls, peak memory and cache bytes
+   printed (phases ``minicpm3_*``, ``qwen_int8_*``, ``deepseek_moe_*``,
+   ``dbrx_*``);
    DeepFM (39 x 1M rows, D=10) serves 8 ``serve_p99`` batches and one
    ``serve_bulk`` batch (2 ``embedding_bag`` launches a call), each
    against the same forward from ``emb.sum(1)``; profiled calls of both;
@@ -58,7 +72,9 @@ a line of its own:
    yardstick the port never calls, and its bound; ``topk_merge`` at
    probe 1, at a late probe and at the live pair's width (list rows and
    the gated buffer columns), beside the launch floor (an empty
-   kernel); ``flash_attention`` (the prefill's 96 x 2,048 x 128 bf16)
+   kernel); ``flash_attention`` (the prefill's 96 x 2,048 x 128 bf16,
+   and MiniCPM3's 160 x 2,048 at qk 96, v 64 beside the
+   ``scaled_dot_product_attention`` backend PyTorch picks there)
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
    and D=1, its bound on 32-byte sectors) are held against their plain
    versions there too; a profiled static and live serve;
@@ -109,6 +125,7 @@ failed phase ends the script with a non-zero exit and no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -222,10 +239,29 @@ def card_line() -> str:
 # at reduced configs.
 
 LM_ARCH, LM_PROMPTS, LM_PROMPT_LEN, LM_DECODE = "starcoder2-3b", 4, 2048, 16
+# the rest of the LM zoo at its published widths, each (phase prefix,
+# arch, cuts): depth is cut only where the card cannot hold the model
+# (Qwen1.5-32B is 135 GB in f32 whole, DBRX 263 GB in bf16 whole), and
+# DeepSeekMoE and DBRX keep bf16 master weights
+LM_ZOO = (("minicpm3", "minicpm3-4b", {}),
+          ("qwen_int8", "qwen1.5-32b", dict(n_layers=16)),
+          ("deepseek_moe", "deepseek-moe-16b",
+           dict(param_dtype="bfloat16")),
+          ("dbrx", "dbrx-132b", dict(n_layers=4, param_dtype="bfloat16")))
 RS_ARCH, RS_P99_BATCH, RS_P99_CALLS, RS_BULK_BATCH = \
     "deepfm", 512, 8, 262_144
 # tests/test_models_lm.py:38-47's bounds on log-softmax differences
 PREFILL_TOL, DECODE_TOL = 0.15, 0.25
+# the MoE harness (lm_serve): a served token routed otherwise than the
+# forward in some layer is left out of those bounds.  Its first
+# differing choice must be a near tie, the forward's expert within
+# ROUTE_TIE of the step's own k-th router log-probability (read on the
+# card: at most 0.0365), and at most these shares of the prefill's and
+# the decode steps' tokens may differ (read: no prefill token; 51 and 2
+# of the 64 decode tokens of DeepSeekMoE and DBRX, whose M=4 products
+# round otherwise than the forward's M=8,256)
+ROUTE_TIE = 0.05
+PREFILL_SWAP_SHARE, DECODE_SWAP_SHARE = 0.001, 0.9
 # f32 flash_attention against its plain version, (atol, rtol): f32 sums
 # in another order.  bf16 is held to kernels.flash_attention.bf16_bound
 # instead (the kernel rounds P to bf16 before P V).
@@ -316,9 +352,10 @@ def sass_counts(so):
 
 def model_zoo_kernels_vs_plain(ctx):
     """flash_attention (causal and not, f32 and bf16, hd 64 and 128, S a
-    tile multiple and not) and embedding_bag (D 1, 10, 16; F 1, 39) on
-    the card against their plain versions, off the main path's shapes
-    (``model_zoo_timing`` holds both at those)."""
+    tile multiple and not; bf16 also at MLA's qk 96, v 64) and
+    embedding_bag (D 1, 10, 16; F 1, 39) on the card against their plain
+    versions, off the main path's shapes (``model_zoo_timing`` holds both
+    at those)."""
     import numpy as np
     import torch
     from repro_torch.kernels import embedding_bag as k_eb
@@ -340,6 +377,21 @@ def model_zoo_kernels_vs_plain(ctx):
                               f"max |got - want| / bound {ratio}")
                     print(f"flash_attention (S={s}, hd={hd}, {dtype}, "
                           f"causal={causal}): max_abs_err {err} {within}")
+        # MLA's heads: q, k 96 = 64 nope + 32 rope, v 64; bf16 only
+        q, k = (torch.from_numpy(rng.normal(size=(8, s, 96)).astype(
+            np.float32)).to(ctx.dev).bfloat16() for _ in range(2))
+        v = torch.from_numpy(rng.normal(size=(8, s, 64)).astype(
+            np.float32)).to(ctx.dev).bfloat16()
+        for causal in (True, False):
+            got = k_fa.flash_attention(q, k, v, causal=causal)
+            ctx.sync()
+            if got.shape != (8, s, 64):
+                raise AssertionError(f"flash_attention (96, 64): output "
+                                     f"shape {tuple(got.shape)}")
+            err, ratio = check_flash(got, q, k, v, causal)
+            print(f"flash_attention (S={s}, qk 96, v 64, bf16, "
+                  f"causal={causal}): max_abs_err {err} max |got - want| / "
+                  f"bound {ratio}")
     for d in (1, 10, 16):
         table = torch.from_numpy(rng.normal(size=(100_000, d)).astype(
             np.float32)).to(ctx.dev)
@@ -354,49 +406,199 @@ def model_zoo_kernels_vs_plain(ctx):
             print(f"embedding_bag (D={d}, F={f}): bit-equal")
 
 
-def lm_serve(ctx, cfg, *, prompts=LM_PROMPTS, prompt_len=LM_PROMPT_LEN,
-             n_decode=LM_DECODE, seed=0):
-    """StarCoder2-3B serving on seeded random weights: init, prefill of
+def cache_report(cfg, cache):
+    """The cache's bytes, and beside them: for an int8 cache its ratio to
+    the bf16 cache of the same shape, for MLA's latent cache its ratio to
+    the per-head K/V cache it replaces (the rule of
+    tests/test_models_lm.py::test_mla_cache_is_small: under 1/10)."""
+    n_bytes = sum(c.numel() * c.element_size() for c in cache.data)
+    out = dict(cache_kind=cache.kind, cache_bytes=n_bytes)
+    if cache.kind == "gqa8":
+        k = cache.data[0]
+        out["bf16_cache_bytes"] = 2 * k.numel() * 2
+        out["ratio_to_bf16_cache"] = n_bytes / out["bf16_cache_bytes"]
+    if cache.kind == "mla":
+        l_, b_, smax = cache.data[0].shape[:3]
+        out["gqa_cache_bytes"] = l_ * 2 * b_ * smax * cfg.n_heads \
+            * cfg.head_dim() * 2
+        out["ratio_to_gqa_cache"] = n_bytes / out["gqa_cache_bytes"]
+        if not out["ratio_to_gqa_cache"] < 0.1:
+            raise AssertionError(f"the MLA cache is not under 1/10 of the "
+                                 f"GQA cache: {out}")
+    return out
+
+
+def expected_params(cfg):
+    """The parameter count of ``cfg``'s tree: ``param_count()`` (which
+    holds for GQA, MoE and dense layers) plus ``ln_f``, plus MLA's two
+    latent norms a layer, which ``param_count`` leaves out (held against
+    the JAX trees in tests/test_torch_models_zoo.py)."""
+    n = cfg.param_count() + cfg.d_model
+    if cfg.attn_type == "mla":
+        n += cfg.n_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
+    return n
+
+
+def drop_free(cfg):
+    """An MoE config at the capacity factor E/k, where an expert's
+    capacity is the whole batch: no token is dropped, whatever the batch
+    (the reference's smoke configs use 8 for the same reason)."""
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def route_swaps(fwd, step, positions, batch):
+    """A served step's routing against the forward's for the same tokens.
+
+    ``fwd`` and ``step`` are the two runs' ``RouteLog.calls`` (one per
+    MoE layer), ``positions`` the step's slice of the forward's
+    positions.  Returns the (B, n) mask of the tokens routed otherwise
+    in some layer; for each such token's first differing layer, how far
+    the forward's least choice lies under the step's own k-th router
+    log-probability (the largest of these; 0.0 if none); and the
+    router's noise, max |log p_step - log p_forward| over the experts,
+    at each token-layer routed alike so far.  Past a token's first
+    differing layer its hidden state differs by design."""
+    import torch
+
+    if len(fwd) != len(step):
+        raise AssertionError(f"{len(step)} MoE calls against the forward's "
+                             f"{len(fwd)}")
+    hit, worst, noise = None, 0.0, []
+    for (f_p, f_e, _), (s_p, s_e, _) in zip(fwd, step):
+        e, k = s_p.shape[1], s_e.shape[1]
+        f_e = f_e.reshape(batch, -1, k)[:, positions].reshape(s_e.shape)
+        f_p = f_p.reshape(batch, -1, e)[:, positions].reshape(s_p.shape)
+        diff = (f_e.sort(-1).values != s_e.sort(-1).values).any(-1)
+        hit = torch.zeros_like(diff) if hit is None else hit
+        first = diff & ~hit
+        if first.any():
+            lp = s_p[first].log()
+            short = lp.gather(-1, s_e[first]).min(-1).values \
+                - lp.gather(-1, f_e[first]).min(-1).values
+            worst = max(worst, float(short.max()))
+        alike = ~(diff | hit)
+        noise.append((s_p[alike].log() - f_p[alike].log()).abs().amax(-1))
+        hit |= diff
+    return hit.reshape(batch, -1), worst, torch.cat(noise)
+
+
+def swap_share_expected(fwd, noise):
+    """The share of tokens a router noise of ``noise`` (a log-probability)
+    would route otherwise in some MoE layer, read off the forward's own
+    routing: a token-layer whose k-th and (k+1)-th router
+    log-probabilities lie within ``noise`` is taken to swap."""
+    import torch
+
+    keep = 1.0
+    for f_p, f_e, _ in fwd:
+        top = f_p.log().topk(f_e.shape[1] + 1, -1).values
+        keep *= 1.0 - float(((top[:, -2] - top[:, -1]) < noise).float()
+                            .mean())
+    return 1.0 - keep
+
+
+def drop_report(log, capacity):
+    """What the route log of a prefill at the published capacity factor
+    says of its drops: the dropped share, its range over the MoE layers,
+    and the most any layer's busiest expert took of the assignments and
+    the most experts a layer held past their ``capacity``."""
+    import torch
+
+    shares, busiest, over = [], [], []
+    for _, top_e, dropped in log.calls:
+        load = torch.bincount(top_e.reshape(-1))
+        shares.append(int(dropped) / top_e.numel())
+        busiest.append(int(load.max()) / top_e.numel())
+        over.append(int((load > capacity).sum()))
+    return dict(dropped_assignments=log.dropped(),
+                dropped_share=log.dropped() / log.assigned(),
+                layer_dropped_share=[min(shares), max(shares)],
+                busiest_expert_share=max(busiest),
+                experts_over_capacity=max(over))
+
+
+def lm_serve(ctx, cfg, *, name="lm", prompts=LM_PROMPTS,
+             prompt_len=LM_PROMPT_LEN, n_decode=LM_DECODE, seed=0):
+    """An LM's serving on seeded random weights: init, prefill of
     ``prompts`` Zipf prompts, ``n_decode`` decode steps fed the stream's
     next tokens, and both held against ``forward`` over the whole
-    sequence."""
+    sequence; phases ``{name}_*``.
+
+    An MoE config serves at its own (published) capacity factor, whose
+    prefill drops assignments that depend on the batch; decode's 4
+    tokens are under the capacity floor of 8, and drop none.  So its
+    consistency phase is a harness: the same prefill, decode steps and
+    forward at the drop-free factor E/k, where each served token is held
+    to the bounds unless its own routing differs from the forward's (a
+    near tie, checked, and a share of the tokens, bounded).  Returns the
+    serving summary."""
+    import contextlib
+
     import numpy as np
     import torch
     from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer
     from repro_torch.models.layers import tree_map
 
     max_seq = prompt_len + n_decode
-    with ctx.phase("lm_init"):
+    summary = dict(model=cfg.name, n_layers=cfg.n_layers)
+    with ctx.phase(f"{name}_init"):
+        ctx.reset_peak()
         params = transformer.init_params(cfg, seed=seed, device=ctx.dev)
         ctx.sync()
         leaves = []
         tree_map(leaves.append, params)
         n = sum(t.numel() for t in leaves)
+        attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+                f"{cfg.mla.kv_lora_rank}, qk {cfg.mla.qk_nope_head_dim}+"
+                f"{cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim})"
+                if cfg.attn_type == "mla" else f"kv={cfg.n_kv_heads}")
+        ffn = (f"MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+               f"(+{cfg.moe.n_shared} shared, d_ff_expert "
+               f"{cfg.moe.d_ff_expert}, capacity factor "
+               f"{cfg.moe.capacity_factor}, {cfg.moe.first_k_dense} dense "
+               f"first)" if cfg.moe else f"d_ff={cfg.d_ff}")
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
         print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-              f"{cfg.n_heads} heads, kv={cfg.n_kv_heads}, d_ff={cfg.d_ff}, "
-              f"vocab {cfg.vocab_size}: {n} parameters "
-              f"({sum(t.numel() * t.element_size() for t in leaves)} bytes "
-              f"f32; config param_count {cfg.param_count()} + ln_f)")
-        if n != cfg.param_count() + cfg.d_model:
+              f"{cfg.n_heads} heads, {attn}, {ffn}, vocab {cfg.vocab_size}, "
+              f"{cfg.param_dtype} weights, {cfg.kv_cache_dtype} KV: {n} "
+              f"parameters ({n_bytes} bytes; expected {expected_params(cfg)}:"
+              f" config param_count + ln_f"
+              f"{' + MLA norms' if cfg.attn_type == 'mla' else ''})")
+        if n != expected_params(cfg):
             raise AssertionError("parameter count differs from the config's")
+        summary.update(params=n, param_bytes=n_bytes,
+                       init_peak_device_mem_bytes=ctx.peak())
     toks = token_stream(prompts * max_seq, cfg.vocab_size, seed=seed) \
         .reshape(prompts, max_seq)
-    with ctx.phase("lm_prefill"):
+
+    def routed():
+        return moe_lib.route_log() if cfg.moe else contextlib.nullcontext()
+
+    with ctx.phase(f"{name}_prefill"):
         # twice: the first call pays for the GEMM heuristics and the
-        # allocator's first blocks, the second is the steady state
+        # allocator's first blocks (and logs the routing), the second is
+        # the steady state
         walls = []
-        for _ in range(2):
+        for i in range(2):
             ctx.reset()
             ctx.reset_peak()
             ctx.sync()
             t0 = time.perf_counter()
-            logits, cache = transformer.prefill(
-                cfg, params, toks[:, :prompt_len], max_seq=max_seq)
-            ctx.sync()
+            with routed() if i == 0 else contextlib.nullcontext() as log:
+                logits, cache = transformer.prefill(
+                    cfg, params, toks[:, :prompt_len], max_seq=max_seq)
+                ctx.sync()
             walls.append((time.perf_counter() - t0) * 1000)
+            if i == 0 and cfg.moe:
+                drops = drop_report(log, moe_lib.capacity_of(
+                    prompts * prompt_len, cfg))
+                del log
         wall = walls[-1]
-        counts = ctx.read(f"lm prefill ({prompts} x {prompt_len})",
+        counts = ctx.read(f"{cfg.name} prefill ({prompts} x {prompt_len})",
                           ["flash_attention"], absent=["embedding_bag"])
         if counts["flash_attention"] != cfg.n_layers:
             raise AssertionError(f"prefill launched flash_attention "
@@ -406,68 +608,169 @@ def lm_serve(ctx, cfg, *, prompts=LM_PROMPTS, prompt_len=LM_PROMPT_LEN,
                 not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite or of the "
                                  "expected shape")
-        peak = ctx.peak()
-        print(json.dumps(dict(prefill_wall_ms=wall,
-                              prefill_wall_ms_first_call=walls[0],
-                              prompt_tokens_per_s=prompts * prompt_len
-                              / (wall / 1000),
-                              peak_device_mem_bytes=peak,
-                              cache_bytes=sum(c.numel() * c.element_size()
-                                              for c in cache.data))))
+        summary.update(prefill_wall_ms=wall,
+                       prefill_wall_ms_first_call=walls[0],
+                       prompt_tokens_per_s=prompts * prompt_len
+                       / (wall / 1000),
+                       peak_device_mem_bytes=ctx.peak(),
+                       flash_attention_launches=counts["flash_attention"],
+                       **cache_report(cfg, cache))
+        print(json.dumps(summary))
+        if cfg.moe:
+            # the drops, and what they come from: the same prefill on
+            # uniformly drawn tokens (no Zipf head), untimed
+            uniform = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (prompts, prompt_len)))
+            with moe_lib.route_log() as log:
+                transformer.prefill(cfg, params, uniform, max_seq=max_seq)
+            drops_u = drop_report(log, moe_lib.capacity_of(
+                prompts * prompt_len, cfg))
+            del log
+            summary.update(capacity_factor=cfg.moe.capacity_factor,
+                           dropped_assignments=drops["dropped_assignments"],
+                           dropped_share=drops["dropped_share"],
+                           dropped_share_uniform_tokens=drops_u[
+                               "dropped_share"])
+            print(json.dumps(dict(zipf_prompts=drops,
+                                  uniform_tokens=drops_u)))
     ctx.reset()
-    with ctx.phase("lm_decode"):
+    with ctx.phase(f"{name}_decode"):
         step_ms, steps = [], []
         for i in range(n_decode):
             pos = prompt_len + i
             ctx.sync()
             t0 = time.perf_counter()
-            lg, cache = transformer.decode_step(cfg, params, cache,
-                                                toks[:, pos: pos + 1], pos)
-            ctx.sync()
+            with routed() if i == 0 else contextlib.nullcontext() as log:
+                lg, cache = transformer.decode_step(cfg, params, cache,
+                                                    toks[:, pos: pos + 1],
+                                                    pos)
+                ctx.sync()
             step_ms.append((time.perf_counter() - t0) * 1000)
             steps.append(lg)
-        ctx.read("lm decode", [], absent=["flash_attention", "embedding_bag"])
+            if i == 0 and cfg.moe and log.dropped():
+                raise AssertionError(f"decode dropped {log.dropped()} "
+                                     f"assignments under the capacity "
+                                     f"floor")
+        ctx.read(f"{cfg.name} decode", [],
+                 absent=["flash_attention", "embedding_bag"])
         if not all(torch.isfinite(lg).all() for lg in steps):
             raise AssertionError("decode logits are not finite")
+        summary.update(ms_per_step_median=float(np.median(step_ms)),
+                       decode_tokens_per_s=prompts * n_decode
+                       / (sum(step_ms) / 1000))
         print(json.dumps(dict(decode_steps=n_decode, batch=prompts,
                               ms_per_step_median=float(np.median(step_ms)),
                               ms_per_step=step_ms,
                               decode_tokens_per_s=prompts * n_decode
                               / (sum(step_ms) / 1000))))
     ctx.reset()
-    with ctx.phase("lm_consistency"):
-        full, _ = transformer.forward(cfg, params, toks)
+    with ctx.phase(f"{name}_consistency"):
+        harness = drop_free(cfg) if cfg.moe else cfg
+        with routed() as fwd_log:
+            full, _ = transformer.forward(harness, params, toks)
         ctx.sync()
-        counts = ctx.read(f"lm forward ({prompts} x {max_seq})",
+        counts = ctx.read(f"{cfg.name} forward ({prompts} x {max_seq})",
                           ["flash_attention"])
         if counts["flash_attention"] != cfg.n_layers:
             raise AssertionError("forward did not launch flash_attention "
                                  "once per layer")
+        # per token: (B,) max |log-softmax - forward's| and whether its
+        # routing differed from the forward's
+        swapped, worst = [], 0.0
+        if cfg.moe:
+            with moe_lib.route_log() as log:
+                logits, cache = transformer.prefill(
+                    harness, params, toks[:, :prompt_len], max_seq=max_seq)
+            hit, w, _ = route_swaps(fwd_log.calls, log.calls,
+                                    slice(0, prompt_len), prompts)
+            swapped.append(hit)
+            worst, steps, noise = w, [], []
+            for i in range(n_decode):
+                pos = prompt_len + i
+                with moe_lib.route_log() as log:
+                    lg, cache = transformer.decode_step(
+                        harness, params, cache, toks[:, pos: pos + 1], pos)
+                steps.append(lg)
+                hit, w, nz = route_swaps(fwd_log.calls, log.calls,
+                                         slice(pos, pos + 1), prompts)
+                swapped.append(hit)
+                noise.append(nz)
+                worst = max(worst, w)
+            # how many decode tokens the decode steps' router noise
+            # would swap, by the forward's own near ties
+            noise = float(torch.cat(noise).median())
+            expected = swap_share_expected(fwd_log.calls, noise)
+            del log, fwd_log
 
         def lsm(x):
             return torch.log_softmax(x.float(), -1)
 
-        pre_err = float((lsm(logits) - lsm(full[:, prompt_len - 1]))
-                        .abs().max())
-        dec_err = [float((lsm(lg) - lsm(full[:, prompt_len + i])).abs().max())
-                   for i, lg in enumerate(steps)]
-        print(f"log-softmax max |prefill - forward| {pre_err} (bound "
-              f"{PREFILL_TOL}); |decode - forward| per step {dec_err} "
-              f"(bound {DECODE_TOL})")
-        if pre_err >= PREFILL_TOL or max(dec_err) >= DECODE_TOL:
+        pre_err = (lsm(logits) - lsm(full[:, prompt_len - 1])).abs() \
+            .amax(-1)
+        dec_err = torch.stack([(lsm(lg) - lsm(full[:, prompt_len + i]))
+                               .abs().amax(-1) for i, lg in enumerate(steps)])
+        pre_own = dec_own = torch.zeros(0, dtype=torch.bool, device=ctx.dev)
+        if cfg.moe:
+            pre_own = swapped[0][:, -1]
+            dec_own = torch.stack([h[:, 0] for h in swapped[1:]])
+        held_pre = pre_err[~pre_own] if cfg.moe else pre_err
+        held_dec = dec_err[~dec_own] if cfg.moe else dec_err
+        pre_max = float(held_pre.max()) if held_pre.numel() else 0.0
+        dec_max = float(held_dec.max()) if held_dec.numel() else 0.0
+        print(f"log-softmax max |prefill - forward| {pre_max} (bound "
+              f"{PREFILL_TOL}); |decode - forward| per step "
+              f"{dec_err.amax(-1).tolist()} (bound {DECODE_TOL})")
+        summary.update(prefill_vs_forward=pre_max,
+                       decode_vs_forward_max=dec_max)
+        if cfg.moe:
+            pre_share = float(swapped[0].float().mean())
+            dec_share = float(dec_own.float().mean())
+            print(json.dumps(dict(
+                harness_capacity_factor=harness.moe.capacity_factor,
+                prefill_tokens_routed_otherwise=int(swapped[0].sum()),
+                prefill_tokens=swapped[0].numel(),
+                decode_tokens_routed_otherwise=int(dec_own.sum()),
+                decode_tokens=dec_own.numel(),
+                decode_router_noise_median=noise,
+                decode_swap_share_expected_from_noise=expected,
+                worst_first_swap_log_gap=worst,
+                decode_err_routed_otherwise=dec_err[dec_own].tolist(),
+                held_prefill_vs_forward=pre_max,
+                held_decode_vs_forward=dec_max,
+                bounds=dict(route_tie=ROUTE_TIE,
+                            prefill_swap_share=PREFILL_SWAP_SHARE,
+                            decode_swap_share=DECODE_SWAP_SHARE))))
+            summary.update(
+                prefill_tokens_routed_otherwise=int(swapped[0].sum()),
+                decode_tokens_routed_otherwise=int(dec_own.sum()),
+                decode_vs_forward_routed_otherwise_max=float(
+                    dec_err[dec_own].max()) if dec_own.any() else 0.0,
+                worst_first_swap_log_gap=worst)
+            if worst >= ROUTE_TIE:
+                raise AssertionError(f"a token's routing differs from the "
+                                     f"forward's {worst} under its own k-th "
+                                     f"router log-probability (bound "
+                                     f"{ROUTE_TIE})")
+            if pre_share > PREFILL_SWAP_SHARE or \
+                    dec_share > DECODE_SWAP_SHARE:
+                raise AssertionError(f"tokens routed otherwise than the "
+                                     f"forward: {pre_share} of the prefill's"
+                                     f", {dec_share} of the decode steps'")
+        if pre_max >= PREFILL_TOL or dec_max >= DECODE_TOL:
             raise AssertionError("prefill/decode disagree with forward")
     del full, steps
-    with ctx.phase("lm_profile"):
+    with ctx.phase(f"{name}_profile"):
         # the same prefill again, and the last decode step again (it
         # rewrites the cache slot with the same values)
-        ctx.profile(f"prefill ({prompts} x {prompt_len})",
+        ctx.profile(f"{cfg.name} prefill ({prompts} x {prompt_len})",
                     lambda: transformer.prefill(cfg, params,
                                                 toks[:, :prompt_len],
                                                 max_seq=max_seq))
         pos = max_seq - 1
-        ctx.profile("decode step", lambda: transformer.decode_step(
+        ctx.profile(f"{cfg.name} decode step", lambda: transformer.decode_step(
             cfg, params, cache, toks[:, pos: pos + 1], pos))
     del params, cache, logits
+    return summary
 
 
 def recsys_serve(ctx, cfg, *, p99_batch=RS_P99_BATCH, p99_calls=RS_P99_CALLS,
@@ -544,6 +847,70 @@ def recsys_serve(ctx, cfg, *, p99_batch=RS_P99_BATCH, p99_calls=RS_P99_CALLS,
                         lambda: recsys.serve_logits(cfg, params, batch))
     ids = torch.as_tensor(batches[-1][1]["sparse"], device=ctx.dev)
     return params, recsys._combined_ids(ids, cfg).contiguous()
+
+
+def sdpa_backend(q, k, v):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    (B, H, S, d) inputs, causal (PyTorch's own choice, ``SDPBackend``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)) \
+            .name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def mla_flash_row(ctx, cfg, launches):
+    """flash_attention at MiniCPM3's prefill shapes (BH = prompts x 40
+    heads, S 2,048, qk 96, v 64, bf16, causal): held against its plain
+    version, then timed beside it and beside
+    ``scaled_dot_product_attention`` (the backend it picked named); its
+    bound is the larger of BH S (S+1) (dqk + dv) operations at the bf16
+    peak and the bytes of q, k, v and o at the memory rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k_fa
+
+    m = cfg.mla
+    dqk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    bh, s = LM_PROMPTS * cfg.n_heads, LM_PROMPT_LEN
+    g = torch.Generator(device=ctx.dev).manual_seed(6)
+    q, k = (torch.randn((bh, s, dqk), generator=g, device=ctx.dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((bh, s, dv), generator=g, device=ctx.dev) \
+        .to(torch.bfloat16)
+    flops = bh * s * (s + 1) * (dqk + dv)
+    n_bytes = bh * s * (2 * dqk + 2 * dv) * 2
+    bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+    got = k_fa.flash_attention(q, k, v, causal=True)
+    ctx.sync()
+    err, ratio = check_flash(got, q, k, v, True)
+    del got
+    shp = (LM_PROMPTS, cfg.n_heads, s)
+    qs, ks_, vs = q.view(*shp, dqk), k.view(*shp, dqk), v.view(*shp, dv)
+    backend = sdpa_backend(qs, ks_, vs)
+    print(f"flash_attention at MiniCPM3's prefill (BH={bh}, S={s}, qk {dqk}, "
+          f"v {dv}, bf16, causal): {flops:.6e} FLOP, {n_bytes} bytes, bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]}); max_abs_err {err}, max |got - want| "
+          f"/ bound {ratio}; scaled_dot_product_attention runs {backend}")
+    return dict(
+        name="flash_attention (qk 96, v 64)", counter="flash_attention",
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:65",
+        launches=launches, max_abs_err=err,
+        ms=ctx.time_call("flash_attention (qk 96, v 64)",
+                         lambda: k_fa.flash_attention(q, k, v, causal=True),
+                         10, profiled=True),
+        plain_ms=ctx.time_call("flash_attention (qk 96, v 64) plain",
+                               lambda: k_fa.flash_attention_plain(
+                                   q, k, v, causal=True), 5),
+        bound=bnd,
+        library_ms=ctx.time_call(
+            f"scaled_dot_product_attention ({backend})",
+            lambda: F.scaled_dot_product_attention(qs, ks_, vs,
+                                                   is_causal=True), 20))
 
 
 def model_zoo_timing(ctx, lm_cfg, table, linear_table, rows):
@@ -2826,6 +3193,15 @@ def main() -> None:
 
     # -- 5. the model zoo: StarCoder2-3B and DeepFM serving -----------------
     lm_serve(ctx, get_arch(LM_ARCH).model)
+    zoo = {}
+    for name, arch, cuts in LM_ZOO:
+        cfg = dataclasses.replace(get_arch(arch).model, **cuts)
+        zoo[name] = lm_serve(ctx, cfg, name=name)
+        # free each model before the next one starts
+        torch.cuda.empty_cache()
+        print(f"after {name}: {torch.cuda.memory_allocated(dev)} bytes "
+              f"allocated on the card")
+    print(json.dumps({"lm_zoo": zoo}))
     rs_params, rs_rows = recsys_serve(ctx, get_arch(RS_ARCH).model)
 
     # -- 6. timing ------------------------------------------------------------
@@ -3098,6 +3474,9 @@ def main() -> None:
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
                                  rs_params["table"],
                                  rs_params["linear_table"], rs_rows)
+        rows.append(mla_flash_row(
+            ctx, get_arch("minicpm3-4b").model,
+            zoo["minicpm3"]["flash_attention_launches"]))
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:

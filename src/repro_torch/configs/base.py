@@ -3,9 +3,9 @@
 A copy of ``repro.configs.base`` (dataclasses only), so the port needs
 nothing of the JAX package.  Every assigned architecture registers an
 :class:`ArchSpec` mapping ``--arch <id>`` to (model config, shape set,
-family).  Shapes carry the *global* batch/sequence dims.  The port runs
-the dense GQA transformers and the recsys models; MLA and MoE configs
-are registered too and raise in ``models/transformer.py``.
+family).  Shapes carry the *global* batch/sequence dims.  The port
+serves every LM config (GQA and MLA, dense and MoE) and the recsys
+models.
 """
 from __future__ import annotations
 

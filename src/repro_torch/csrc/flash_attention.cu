@@ -1,17 +1,22 @@
 // flash_attention: online-softmax attention over streamed KV tiles.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention (Pallas,
-// TPU): q, k, v (BH, S, hd) -> o (BH, S, hd) in q's type,
-// o = softmax(q k^T / sqrt(hd) [causal-masked with -1e30]) v, with the
+// TPU): q, k (BH, S, dqk), v (BH, S, dv) -> o (BH, S, dv) in q's type,
+// o = softmax(q k^T / sqrt(dqk) [causal-masked with -1e30]) v, with the
 // running max m, the running sum l and the accumulator carried over KV
 // tiles in f32 and o = acc / max(l, 1e-30).  Unlike the Pallas kernel
 // (which asserts S % blk == 0) any S is taken: keys past S score -1e30,
-// query rows past S are computed and not written.
+// query rows past S are computed and not written.  (dqk, dv) is (64, 64)
+// or (128, 128), and in bf16 also (96, 64): MLA's heads (MiniCPM3-4B,
+// 64 nope + 32 rope dims for q and k, 64 for v), as the JAX model's
+// chunked attention takes them.
 //
 // Bound on the H100: operations.  At the StarCoder2-3B prefill (bf16,
 // BH = 96, S = 2,048, hd = 128, causal) the work is
 // 4 * BH * hd * S(S+1)/2 = 103 GFLOP against 201 MB of q, k, v and o:
-// 0.104 ms at the bf16 tensor-core peak, 0.060 ms by bytes.
+// 0.104 ms at the bf16 tensor-core peak, 0.060 ms by bytes; at
+// MiniCPM3's (BH = 160, S = 2,048, (96, 64)) 2 * BH * (96 + 64) *
+// S(S+1)/2 = 107 GFLOP against 210 MB: 0.109 ms against 0.063 ms.
 //
 // Two kernels, one per input type.
 //
@@ -30,6 +35,13 @@
 // and accumulates P V with wgmma (A from registers, V as an MN-major B
 // from shared memory).  P is rounded to bf16 before P V, as the JAX
 // model's attention does (p.astype(v.dtype)); l sums the f32 P.
+// Q K^T takes dqk / 16 k16 steps and P V an N of dv.  A 96-column q or
+// k row is loaded as two 64-column boxes, the second reading columns
+// 96-127 past the tensor's edge: TMA fills them with zeros, which the
+// k16 steps never read (6 of the 8 the two boxes hold).  The one box
+// width keeps the one 128-byte swizzle and its wgmma descriptors; a
+// 32-column box would need a 64-byte swizzle and descriptors of its own,
+// for 16 KB of shared memory per tile saved.
 //
 // f32 stays on the CUDA cores (no TF32): one CTA of 256 threads per
 // (bh, 64-row query tile); the query tile stays in shared memory,
@@ -232,14 +244,19 @@ constexpr int kBox = 64;        // columns per TMA box: 128 bytes, the swizzle
 constexpr int kBoxBytes = 128 * kBox * 2;  // one box of 128 rows: 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory: the Q tile, then kStages x (K tile, V tile), each tile
-// HD / 64 boxes of [128 rows][64 columns] bf16, 128-byte swizzled; then
-// the barriers.  1 KB of slack aligns the tiles to the swizzle atom.
-template <int HD>
+// shared memory: the Q tile, then kStages x (K tile, V tile), a Q or K
+// tile ceil(DQK / 64) boxes and a V tile DV / 64 boxes of [128 rows][64
+// columns] bf16, 128-byte swizzled; then the barriers.  1 KB of slack
+// aligns the tiles to the swizzle atom.
+template <int DQK, int DV>
 struct TcSmem {
-  static constexpr int kTile = (HD / kBox) * kBoxBytes;
-  static constexpr int kKV = kTile;                       // stage 0's K
-  static constexpr int kBar = kTile + kStages * 2 * kTile;
+  static constexpr int kQKBoxes = (DQK + kBox - 1) / kBox;
+  static constexpr int kVBoxes = DV / kBox;
+  static constexpr int kQKTile = kQKBoxes * kBoxBytes;
+  static constexpr int kVTile = kVBoxes * kBoxBytes;
+  static constexpr int kStage = kQKTile + kVTile;         // K tile, V tile
+  static constexpr int kKV = kQKTile;                     // stage 0's K
+  static constexpr int kBar = kKV + kStages * kStage;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + 1024;
 };
 
@@ -375,21 +392,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ o, int S,
                                 int causal) {
-  using L = TcSmem<HD>;
-  constexpr int kKSteps = HD / 16;  // k16 steps of Q K^T
+  static_assert(DQK % 16 == 0 && (DV == 64 || DV == 128),
+                "dqk a multiple of 16; dv 64 or 128");
+  using L = TcSmem<DQK, DV>;
+  constexpr int kKSteps = DQK / 16;  // k16 steps of Q K^T
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t s_q = base;
   const uint32_t bar = base + L::kBar;  // full[s], empty[s], then q
-  auto s_k = [&](int st) { return base + L::kKV + st * 2 * L::kTile; };
+  auto s_k = [&](int st) { return base + L::kKV + st * L::kStage; };
   auto full = [&](int st) { return bar + 8 * st; };
   auto empty = [&](int st) { return bar + 8 * (kStages + st); };
   const uint32_t q_bar = bar + 8 * 2 * kStages;
@@ -415,19 +434,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (warp >= kConsumerWarps) {  // the producer: one thread loads by TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (warp == kConsumerWarps && lane == 0) {
-      mbar_expect_tx(q_bar, L::kTile);
-      for (int c = 0; c < HD / kBox; ++c)
+      // a box's bytes count in full, its zero-filled part too
+      mbar_expect_tx(q_bar, L::kQKTile);
+      for (int c = 0; c < L::kQKBoxes; ++c)
         tma_load(s_q + c * kBoxBytes, &tq, q_bar, c * kBox, q0, bh);
       for (int j = 0; j <= last; ++j) {
         const int st = j % kStages;
         mbar_wait(empty(st), ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(st), 2 * L::kTile);
-        for (int c = 0; c < HD / kBox; ++c) {
+        mbar_expect_tx(full(st), L::kStage);
+        for (int c = 0; c < L::kQKBoxes; ++c)
           tma_load(s_k(st) + c * kBoxBytes, &tk, full(st), c * kBox, j * kTN,
                    bh);
-          tma_load(s_k(st) + L::kTile + c * kBoxBytes, &tv, full(st),
+        for (int c = 0; c < L::kVBoxes; ++c)
+          tma_load(s_k(st) + L::kQKTile + c * kBoxBytes, &tv, full(st),
                    c * kBox, j * kTN, bh);
-        }
       }
     }
     return;
@@ -440,12 +460,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int row_a = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int row_b = row_a + 8;
   const int col = 2 * (lane & 3);
-  // the Pallas kernel's scale, f32(1 / sqrt(hd)), times log2(e) for exp2
+  // the Pallas kernel's scale, f32(1 / sqrt(dqk)), times log2(e) for exp2
   const float scale =
-      static_cast<float>(1.0 / sqrt(static_cast<double>(HD))) * kLog2e;
-  float acc[HD / 2];
+      static_cast<float>(1.0 / sqrt(static_cast<double>(DQK))) * kLog2e;
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float m_a = kNeg, m_b = kNeg, l_a = 0.0f, l_b = 0.0f;
 
   mbar_wait(q_bar, 0);
@@ -453,7 +473,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int st = j % kStages;
     mbar_wait(full(st), (j / kStages) & 1);
     const uint32_t k_tile = s_k(st);
-    const uint32_t v_tile = k_tile + L::kTile;
+    const uint32_t v_tile = k_tile + L::kQKTile;
 
     float s[64];
     wg_fence();
@@ -510,7 +530,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     l_a = l_a * al_a + rs_a;
     l_b = l_b * al_b + rs_b;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
 
     // P in bf16: S's chunk pair (2kk, 2kk + 1) is the A fragment of k16
     // step kk (rows a, b x keys col, col + 8)
@@ -541,14 +561,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
   const long long head = static_cast<long long>(bh) * S;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+  for (int c = 0; c < DV / 8; ++c) {
     if (row_a < S)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + (head + row_a) * HD + 8 * c + col) =
+          o + (head + row_a) * DV + 8 * c + col) =
           __floats2bfloat162_rn(acc[4 * c] / den_a, acc[4 * c + 1] / den_a);
     if (row_b < S)
       *reinterpret_cast<__nv_bfloat162*>(
-          o + (head + row_b) * HD + 8 * c + col) =
+          o + (head + row_b) * DV + 8 * c + col) =
           __floats2bfloat162_rn(acc[4 * c + 2] / den_b,
                                 acc[4 * c + 3] / den_b);
   }
@@ -582,7 +602,8 @@ EncodeTiled encode_tiled() {
 }
 
 // a (BH, S, HD) bf16 tensor as boxes of 128 rows x 64 columns of one head,
-// 128-byte swizzled; rows past S read as zeros
+// 128-byte swizzled; rows past S and columns past HD read as zeros (the
+// row stride, 2 HD bytes, must be a multiple of 16: HD % 8 == 0)
 bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int HD) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
@@ -600,20 +621,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int HD) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
                 int S, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, BH, S, HD) || !make_map(&tk, k, BH, S, HD) ||
-      !make_map(&tv, v, BH, S, HD))
+  if (!make_map(&tq, q, BH, S, DQK) || !make_map(&tk, k, BH, S, DQK) ||
+      !make_map(&tv, v, BH, S, DV))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = TcSmem<HD>::kBytes;
+  const int smem = TcSmem<DQK, DV>::kBytes;
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<HD>,
+      flash_attention_bf16_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(BH, (S + kTM - 1) / kTM);
-  flash_attention_bf16_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+  flash_attention_bf16_kernel<DQK, DV><<<grid, kTcThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -622,18 +643,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
 
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int BH, int S,
-                                   int hd, int causal, void* stream) {
+                                   int dqk, int dv, int causal,
+                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_f32<64>(q, k, v, o, BH, S, causal, st);
-  if (hd == 128) return launch_f32<128>(q, k, v, o, BH, S, causal, st);
+  if (dqk != dv) return static_cast<int>(cudaErrorInvalidValue);
+  if (dqk == 64) return launch_f32<64>(q, k, v, o, BH, S, causal, st);
+  if (dqk == 128) return launch_f32<128>(q, k, v, o, BH, S, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int BH, int S,
-                                    int hd, int causal, void* stream) {
+                                    int dqk, int dv, int causal,
+                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch_bf16<64>(q, k, v, o, BH, S, causal, st);
-  if (hd == 128) return launch_bf16<128>(q, k, v, o, BH, S, causal, st);
+  if (dqk == 64 && dv == 64)
+    return launch_bf16<64, 64>(q, k, v, o, BH, S, causal, st);
+  if (dqk == 128 && dv == 128)
+    return launch_bf16<128, 128>(q, k, v, o, BH, S, causal, st);
+  if (dqk == 96 && dv == 64)
+    return launch_bf16<96, 64>(q, k, v, o, BH, S, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

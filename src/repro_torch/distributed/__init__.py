@@ -1,5 +1,5 @@
 """Distributed helpers over ``torch.distributed`` (port of
-``repro.distributed``): collectives (``collectives``) and the
-row-sharded embedding lookup (``embedding``).  ``sharding`` and
-``context`` serve the MoE/MLA model code, which the port does not carry
-yet."""
+``repro.distributed``): collectives (``collectives``), the row-sharded
+embedding lookup (``embedding``) and the mesh context that model code
+reads (``context``).  ``sharding`` (the partition rules of the HLO
+tools' cells) is not ported."""

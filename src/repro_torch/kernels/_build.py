@@ -34,8 +34,8 @@ _SIGNATURES = {
     "topk_merge": [_P] * 6 + [_I] * 5 + [_P],
     "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
     "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
-    "flash_attention_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "flash_attention_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "flash_attention_f32": [_P] * 4 + [_I] * 5 + [_P],
+    "flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],
     "embedding_bag": [_P] * 3 + [_I] * 3 + [_P],
     "launch_floor": [_P],   # an empty kernel: no call takes less time
 }

@@ -2,9 +2,12 @@
 
 Port of ``repro.kernels.flash_attention``.  On a CUDA tensor the
 wrapper launches ``csrc/flash_attention.cu`` (f32 on the CUDA cores,
-bf16 on the tensor cores; hd 64 or 128, any S); on a CPU tensor it runs
-:func:`flash_attention_plain`.  The layout is the reference's: q, k, v
-(BH, S, hd), the output in q's dtype.  The kernel picks its own tiles,
+bf16 on the tensor cores; any S); on a CPU tensor it runs
+:func:`flash_attention_plain`.  The layout is the reference's: q and k
+(BH, S, dqk), v (BH, S, dv), the output (BH, S, dv) in q's dtype, the
+scale 1/sqrt(dqk).  The kernels take (dqk, dv) of (64, 64) and
+(128, 128), and the bf16 kernel also MLA's (96, 64) (MiniCPM3: 64 nope +
+32 rope, v 64).  The kernel picks its own tiles,
 so there are no ``blk_*`` arguments, and sizes its own shared memory: a
 refused opt-in comes back as the launch's error code and raises.
 
@@ -23,13 +26,15 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
-_HEAD_DIMS = (64, 128)   # csrc/flash_attention.cu instantiations
+# (dqk, dv) of each dtype's instantiations in csrc/flash_attention.cu
+_HEAD_DIMS = {torch.float32: ((64, 64), (128, 128)),
+              torch.bfloat16: ((64, 64), (128, 128), (96, 64))}
 # the bf16 kernel's TMA descriptors need 16-byte-aligned tensors
 _TMA_ALIGN = 16
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The f32 masked softmax of q k^T / sqrt(hd): (BH, S, S)."""
+    """The f32 masked softmax of q k^T / sqrt(dqk): (BH, S, S)."""
     s = q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) * scale
@@ -42,7 +47,8 @@ def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
     """A full f32 masked softmax (``repro.kernels.ref.flash_attention_ref``
-    in torch): (BH, S, hd) -> (BH, S, hd) in q's dtype."""
+    in torch): q, k (BH, S, dqk), v (BH, S, dv) -> (BH, S, dv) in q's
+    dtype."""
     p = _probs(q, k, causal)
     return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
 
@@ -62,27 +68,31 @@ def bf16_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q, k, v (BH, S, hd), f32 or bf16, one dtype -> (BH, S, hd)."""
-    bh, s, hd = q.shape
+    """q, k (BH, S, dqk), v (BH, S, dv), f32 or bf16, one dtype ->
+    (BH, S, dv)."""
+    bh, s, dqk = q.shape
+    dv = v.shape[-1]
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: q must be float32 or bfloat16, "
                          f"got {q.dtype}")
-    spec = (bh, s, hd)
-    dev = _build.check_inputs("flash_attention", q=(q, q.dtype, spec),
-                              k=(k, q.dtype, spec), v=(v, q.dtype, spec))
+    dev = _build.check_inputs("flash_attention", q=(q, q.dtype, (bh, s, dqk)),
+                              k=(k, q.dtype, (bh, s, dqk)),
+                              v=(v, q.dtype, (bh, s, dv)))
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes hd in "
-                         f"{_HEAD_DIMS}, got {hd}")
+    if (dqk, dv) not in _HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention: the {q.dtype} kernel takes "
+                         f"(dqk, dv) in {_HEAD_DIMS[q.dtype]}, got "
+                         f"{(dqk, dv)}")
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % _TMA_ALIGN for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q, k and v must start "
                          f"{_TMA_ALIGN}-byte aligned")
-    out = torch.empty_like(q)
+    out = torch.empty((bh, s, dv), dtype=q.dtype, device=dev)
     if bh and s:
         _build.launch(_DTYPES[q.dtype], dev, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), bh, s, hd, int(causal))
+                      v.data_ptr(), out.data_ptr(), bh, s, dqk, dv,
+                      int(causal))
         flash_attention.launches += 1
     return out
 

@@ -25,7 +25,8 @@ from repro_torch.kernels import topk_merge as _tm
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """q, k, v (BH, S, hd) -> (BH, S, hd) in q's dtype; any S."""
+    """q, k (BH, S, dqk), v (BH, S, dv) -> (BH, S, dv) in q's dtype; any
+    S."""
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal)
 

@@ -23,10 +23,12 @@ import pickle
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Callable, List, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import DeviceLike, resolve_device
 
 Axes = Union[str, Sequence[str]]
 
@@ -134,7 +136,7 @@ def _rank_main(rank: int, world_size: int, backend: str, device: str,
 
 
 def launch(fn: Callable, world_size: int, *args: Any,
-           backend: str = "gloo", device: str = "cpu",
+           backend: Optional[str] = None, device: DeviceLike = None,
            timeout: float = 60.0, deadline: float = 600.0) -> List[Any]:
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` spawned
     ranks of one new process group and return each rank's result, in
@@ -143,9 +145,11 @@ def launch(fn: Callable, world_size: int, *args: Any,
     ``fn`` and ``args`` are pickled once into a file every rank reads
     (``fn`` by its import path: a module-level function), so the ranks
     start side by side whatever the size of ``args``; each result comes
-    back through a pickle file the rank writes.  ``device="cpu"`` gives
-    each rank one intra-op thread; ``"cuda"`` puts rank r on card r mod
-    the card count.
+    back through a pickle file the rank writes.  The ranks run on the
+    card unless given ``device="cpu"`` (without a card that raises):
+    ``"cuda"`` puts rank r on card r mod the card count, ``"cpu"`` gives
+    each rank one intra-op thread.  ``backend`` defaults to NCCL on the
+    card and gloo on the CPU.
     ``timeout`` (s) bounds each collective of the group; ``deadline``
     (s) the whole launch, after which every rank is killed and
     ``TimeoutError`` raised.  A rank that raises fails the launch with
@@ -153,8 +157,11 @@ def launch(fn: Callable, world_size: int, *args: Any,
     and the other ranks are stopped."""
     import torch.multiprocessing as mp
 
+    device = resolve_device(device).type
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+    if backend is None:
+        backend = "nccl" if device == "cuda" else "gloo"
     with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
         with open(Path(tmp) / "call.pkl", "wb") as f:
             pickle.dump((fn, args), f)

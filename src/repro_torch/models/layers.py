@@ -27,8 +27,14 @@ def tree_map(fn: Callable, tree):
 
 
 def from_numpy(a, device) -> torch.Tensor:
-    """A (possibly read-only) numpy array as a tensor on ``device``."""
-    return torch.from_numpy(np.array(a)).to(device)
+    """A (possibly read-only) numpy array as a tensor on ``device``.  A
+    bfloat16 array (``ml_dtypes.bfloat16``, which numpy has no name for)
+    crosses as its 16-bit patterns: the same bits, not a rounded copy."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def normal(gen: torch.Generator, shape) -> torch.Tensor:

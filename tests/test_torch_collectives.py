@@ -155,7 +155,8 @@ def runs(inputs, tmp_path_factory):
          str(tmp / "ref.npz")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
-        port = launch(_collectives, 8, inputs, timeout=60, deadline=180)
+        port = launch(_collectives, 8, inputs, device="cpu", timeout=60,
+                      deadline=180)
         _, err = proc.communicate(timeout=300)
     finally:
         proc.kill()
@@ -236,8 +237,8 @@ def test_sharded_assign_step_matches_reference(runs):
 
 def test_one_rank_sharded_assign_step_is_the_lloyd_step(inputs):
     new, assign, want_new, want_assign = launch(
-        _one_rank_lloyd, 1, inputs["km_x"], inputs["km_c"], timeout=30,
-        deadline=120)[0]
+        _one_rank_lloyd, 1, inputs["km_x"], inputs["km_c"], device="cpu",
+        timeout=30, deadline=120)[0]
     np.testing.assert_array_equal(new, want_new)
     np.testing.assert_array_equal(assign, want_assign)
 

@@ -160,8 +160,8 @@ def port(ref):
         shards[corpus] = sharded(ref, corpus)
         shards[corpus + "/int8"] = sharded(ref, corpus, int8=True)
     queries = {c: ref[f"{c}/queries"] for c in CORPORA}
-    return launch(_mesh_cases, 8, shards, queries, CASES, timeout=60,
-                  deadline=240)
+    return launch(_mesh_cases, 8, shards, queries, CASES, device="cpu",
+                  timeout=60, deadline=240)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -250,7 +250,7 @@ def test_loop_decision_guard_keeps_ranks_in_step(ref):
     """Ranks fed different active flags still take the same number of
     steps (the reduced flag) and finish with one result."""
     outs = launch(_diverging_flags, 4, sharded(ref, "a"), ref["a/queries"],
-                  timeout=20, deadline=120)
+                  device="cpu", timeout=20, deadline=120)
     steps = {o[0] for o in outs}
     assert len(steps) == 1 and steps.pop() == 16     # ceil(64 / 4) steps
     for o in outs[1:]:
@@ -263,7 +263,7 @@ def test_a_diverging_rank_fails_the_launch_not_hangs():
     from torch.multiprocessing import ProcessRaisedException
 
     with pytest.raises((ProcessRaisedException, TimeoutError)):
-        launch(_skips_a_collective, 2, timeout=5, deadline=60)
+        launch(_skips_a_collective, 2, device="cpu", timeout=5, deadline=60)
 
 
 # -- on the card --------------------------------------------------------------

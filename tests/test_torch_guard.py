@@ -46,6 +46,7 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.runtime.chaos, repro_torch.core.distributed_ivf,"
             " repro_torch.launch.mesh, repro_torch.distributed.collectives,"
             " repro_torch.distributed.embedding,"
+            " repro_torch.distributed.context, repro_torch.models.moe,"
             " repro_torch.benchmarks.serving_bench,"
             " repro_torch.benchmarks.run;"
             "bad = sorted(m for m in sys.modules"
@@ -123,6 +124,8 @@ def _numpy_tree(tree):
 
 
 @pytest.mark.parametrize("arch,family", [("starcoder2-3b", transformer),
+                                         ("minicpm3-4b", transformer),
+                                         ("deepseek-moe-16b", transformer),
                                          ("deepfm", recsys)])
 def test_model_entry_points_need_a_card_or_an_explicit_cpu(no_card, arch,
                                                            family):
@@ -148,6 +151,30 @@ def test_kv_caches_need_a_card_or_an_explicit_cpu(no_card, make):
     cache = make(cfg, 2, 8, device="cpu")
     k = cache.k if make is attention.init_kv_cache else cache.data[0]
     assert k.device.type == "cpu" and k.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch,make", [
+    ("qwen1.5-32b", attention.init_kv_cache),
+    ("minicpm3-4b", attention.init_mla_cache),
+    ("minicpm3-4b", transformer.init_cache)])
+def test_int8_and_mla_caches_need_a_card_or_an_explicit_cpu(no_card, arch,
+                                                            make):
+    cfg = reduced(get_arch(arch)).model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(cfg, 2, 8)
+    cache = make(cfg, 2, 8, device="cpu")
+    data = cache.data if make is transformer.init_cache else cache
+    assert all(t.device.type == "cpu" for t in data if t is not None)
+
+
+def test_mesh_launch_needs_a_card_or_an_explicit_cpu(no_card):
+    """``launch.mesh.launch`` runs its ranks on the card by default: with
+    no card it raises before it spawns anything."""
+    from repro_torch.launch.mesh import launch
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(print, 2, device="cuda")
 
 
 def test_search_and_scheduler_refuse_another_device():

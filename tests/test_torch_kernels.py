@@ -655,7 +655,7 @@ def test_flash_attention_wrapper_checks_inputs():
 
 def _flash_bf16_emulation(q, k, v, causal, fault=None):
     """csrc/flash_attention.cu's bf16 arithmetic in plain torch: 128-key
-    tiles, the online softmax in the exp2 domain (scale f32(1/sqrt(hd))
+    tiles, the online softmax in the exp2 domain (scale f32(1/sqrt(dqk))
     times log2(e)), l summed from the f32 P, P rounded to bf16 before
     P V, f32 accumulation, one bf16 rounding of acc / max(l, 1e-30).
     ``fault`` plants one error: "mask_off_by_one" lets each row see one
@@ -668,7 +668,7 @@ def _flash_bf16_emulation(q, k, v, causal, fault=None):
     rows = torch.arange(s)[:, None]
     m = torch.full((bh, s, 1), t_fa.NEG_INF)
     l = torch.zeros((bh, s, 1))
-    acc = torch.zeros((bh, s, hd))
+    acc = torch.zeros((bh, s, v.shape[-1]))
     n_kv = -(-s // 128)
     for j in range(n_kv):
         keys = torch.arange(j * 128, min(s, j * 128 + 128))[None, :]
@@ -717,6 +717,31 @@ def test_flash_bf16_bound_catches_a_planted_fault(fault, hd):
     assert ((got.float() - want.float()).abs() > bound).any()
 
 
+def _bf16_qkv96(seed, s, bh=3):
+    """MLA's heads: q, k (bh, s, 96) and v (bh, s, 64), bf16."""
+    rng = np.random.default_rng(seed)
+    return [T(rng.normal(size=(bh, s, d)).astype(np.float32))
+            .to(torch.bfloat16) for d in (96, 96, 64)]
+
+
+@pytest.mark.parametrize("s", [33, 200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_emulation_at_qk96_v64_within_bound(s, causal):
+    """The bf16 kernel's arithmetic at dqk 96, dv 64 (the scale from
+    dqk) stays within ``bf16_bound``; a mask planted one key off does
+    not."""
+    q, k, v = _bf16_qkv96(s, s)
+    want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+    assert want.shape == (3, s, 64)
+    bound = t_fa.bf16_bound(q, k, v, want, causal=causal)
+    got = _flash_bf16_emulation(q, k, v, causal)
+    err = (got.float() - want.float()).abs()
+    assert (err <= bound).all() and err.max() > 0
+    if causal:
+        bad = _flash_bf16_emulation(q, k, v, True, fault="mask_off_by_one")
+        assert ((bad.float() - want.float()).abs() > bound).any()
+
+
 # the sweep of tests/test_kernels.py::test_embedding_bag_sweep, plus
 # DeepFM's widths (F=39, D=10 and the D=1 linear table)
 @pytest.mark.parametrize("r,d,b,f", [(50, 8, 4, 3), (200, 16, 8, 5),
@@ -761,9 +786,31 @@ def test_gpu_flash_attention_matches_plain(cuda, s, hd, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [128, 200, 2064])
+def test_gpu_flash_attention_at_qk96_v64_matches_plain(cuda, s):
+    """MLA's heads (MiniCPM3: q, k 96 = 64 nope + 32 rope, v 64) on the
+    bf16 kernel, within ``bf16_bound`` of the plain version: the second
+    64-column box of each q and k row reads zeros past column 96."""
+    q, k, v = (x.to(cuda) for x in _bf16_qkv96(s, s, bh=6))
+    for causal in (True, False):
+        before = t_fa.flash_attention.launches
+        got = t_fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert t_fa.flash_attention.launches == before + 1
+        assert got.shape == (6, s, 64) and got.dtype == torch.bfloat16
+        want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+        bound = t_fa.bf16_bound(q, k, v, want, causal=causal)
+        assert ((got.float() - want.float()).abs() <= bound).all()
+
+
+@pytest.mark.gpu
 def test_gpu_flash_attention_refuses_other_head_dims(cuda):
     q, k, v = _to(cuda, *_qkv(0, 2, 64, 32))
-    with pytest.raises(ValueError, match="hd in"):
+    with pytest.raises(ValueError, match=r"\(dqk, dv\) in"):
+        t_fa.flash_attention(q, k, v)
+    # (96, 64) is a bf16 instantiation only
+    q, k, v = (x.float().to(cuda) for x in _bf16_qkv96(0, 64))
+    with pytest.raises(ValueError, match=r"\(dqk, dv\) in"):
         t_fa.flash_attention(q, k, v)
 
 

@@ -185,20 +185,3 @@ def test_decode_attn_matches_reference():
                              torch.from_numpy(kc).to(torch.bfloat16),
                              torch.from_numpy(vc).to(torch.bfloat16), 7)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
-
-
-@pytest.mark.parametrize("arch,what", [("minicpm3-4b", "MLA"),
-                                       ("deepseek-moe-16b", "MoE")])
-def test_unported_models_raise(arch, what):
-    cfg = t_reduced(t_get_arch(arch)).model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_params(cfg, device="cpu")
-
-
-def test_int8_kv_cache_raises():
-    cfg = t_reduced(t_get_arch("qwen1.5-32b")).model
-    params = ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        ttf.prefill(cfg, params, np.zeros((1, 4), np.int32))
-    logits, _ = ttf.forward(cfg, params, np.zeros((1, 4), np.int32))
-    assert logits.shape == (1, 4, cfg.vocab_size)
