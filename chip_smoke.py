@@ -68,6 +68,30 @@ a line of its own:
    DeepFM (39 x 1M rows, D=10) serves 8 ``serve_p99`` batches and one
    ``serve_bulk`` batch (2 ``embedding_bag`` launches a call), each
    against the same forward from ``emb.sum(1)``; profiled calls of both;
+5b. training (phases ``lm_train_*``, ``train_restart*``,
+   ``recsys_train_*``, ``recsys_score_candidates``,
+   ``retriever_lifecycle``): StarCoder2-3B at published widths and all
+   30 layers, f32 master weights, the trainer's AdamW, on ``lm_batcher``'s
+   2 x 4,096 tokens (train_4k's sequence; its global batch of 256 cut to
+   a micro-batch of 2): the first step's loss and gradients through the
+   flash kernel's autograd Function (2 launches a layer: the forward and
+   the remat recompute) held against the same step through the plain
+   ``_causal_chunk_attn`` under autograd, then 4 steps (step ms,
+   tokens/s, peak memory, 60 flash launches each), one profiled step,
+   the plain attention backward's time a layer and its share of a step;
+   the restart drill on the same widths cut to 2 layers (4 GB
+   checkpoints in a temporary directory, removed after): one step run
+   twice from one state bit for bit, then 8 steps checkpointed every 2
+   with failures injected at steps 3 and 5, the losses bit for bit the
+   uninterrupted run's; DeepFM at published widths on ``recsys_batcher``'s
+   65,536-example batches: the first step's loss and gradients through
+   the embedding_bag Function bit for bit the plain version's under the
+   same deterministic backward, 4 AdamW steps (2 launches each), the
+   backward's time; ``score_candidates`` at retrieval_cand (1 x 1M x
+   256, k=100) against a full sort; the retriever example's life cycle
+   (``--big``: ~103M parameters, 300 steps, 40k docs embedded, the
+   index built, N chosen, fixed and patience searched on the fused
+   kernel), fused == the per-probe kernel pair bit for bit;
 6. each kernel's time (CUDA events) beside its plain version, a library
    yardstick the port never calls, and its bound; ``topk_merge`` at
    probe 1, at a late probe and at the live pair's width (list rows and
@@ -77,7 +101,9 @@ a line of its own:
    ``scaled_dot_product_attention`` backend PyTorch picks there)
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
    and D=1, its bound on 32-byte sectors) are held against their plain
-   versions there too; a profiled static and live serve;
+   versions there too, as are the training rows of 5b (flash at 2 x
+   4,096, the bag at the training batch); a profiled static and live
+   serve;
 6b. deadline-budgeted serving on the main path's index and queries
    (``WaveScheduler(deadline_ms=)``, one fused launch a wave): under a
    simulated clock of 1 ms a wave, budgets of 4, 8, 16 and 32 ms and
@@ -913,51 +939,62 @@ def mla_flash_row(ctx, cfg, launches):
                                                    is_causal=True), 20))
 
 
+def flash_row(ctx, name, batch, heads, s, hd, seed, launches=None):
+    """flash_attention at (batch x heads, s, hd), random bf16, causal: held
+    against its plain version (its row's ``max_abs_err``), then timed
+    beside it and beside ``scaled_dot_product_attention``; its bound the
+    larger of the causal products at the bf16 peak and the bytes of q,
+    k, v and o."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k_fa
+
+    bh = batch * heads
+    g = torch.Generator(device=ctx.dev).manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, hd), generator=g, device=ctx.dev)
+               .to(torch.bfloat16) for _ in range(3))
+    flops = 4 * bh * hd * s * (s + 1) / 2
+    n_bytes = 4 * bh * s * hd * 2
+    print(f"{name}: {flops:.6e} causal FLOP, {n_bytes} bytes; at the f32 "
+          f"CUDA-core peak {flops / F32_FLOPS_PER_S * 1e3:.6f} ms")
+    got = k_fa.flash_attention(q, k, v, causal=True)
+    ctx.sync()
+    err, ratio = check_flash(got, q, k, v, True)
+    print(f"{name} (BH={bh}, S={s}, hd={hd}, bf16, causal): max_abs_err "
+          f"{err}, max |got - want| / bound {ratio}")
+    del got
+
+    def sdpa():
+        shp = (batch, heads, s, hd)
+        return F.scaled_dot_product_attention(
+            q.view(shp), k.view(shp), v.view(shp), is_causal=True)
+
+    row = dict(
+        name=name, counter="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:65", max_abs_err=err,
+        ms=ctx.time_call(name, lambda: k_fa.flash_attention(
+            q, k, v, causal=True), 10, profiled=True),
+        plain_ms=ctx.time_call(f"{name} plain",
+                               lambda: k_fa.flash_attention_plain(
+                                   q, k, v, causal=True), 5),
+        bound=bound(n_bytes, flops, BF16_FLOPS_PER_S),
+        library_ms=ctx.time_call(f"{name}: scaled_dot_product_attention",
+                                 sdpa, 20))
+    if launches is not None:
+        row["launches"] = launches
+    return row
+
+
 def model_zoo_timing(ctx, lm_cfg, table, linear_table, rows):
     """Timing rows of flash_attention (the prefill's shapes, random bf16)
     and embedding_bag (the bulk batch on both DeepFM tables: D=10 and the
     D=1 ``linear_table``), each first held against its plain version on
     those inputs: its row's ``max_abs_err``."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as k_fa
-
-    heads, hd = lm_cfg.n_heads, lm_cfg.head_dim()
-    bh, s = LM_PROMPTS * heads, LM_PROMPT_LEN
-    g = torch.Generator(device=ctx.dev).manual_seed(5)
-    q, k, v = (torch.randn((bh, s, hd), generator=g, device=ctx.dev)
-               .to(torch.bfloat16) for _ in range(3))
-    flops = 4 * bh * hd * s * (s + 1) / 2
-    n_bytes = 4 * bh * s * hd * 2
-    print(f"flash_attention: {flops:.6e} causal FLOP, {n_bytes} bytes; "
-          f"at the f32 CUDA-core peak {flops / F32_FLOPS_PER_S * 1e3:.6f}"
-          f" ms")
-
-    got = k_fa.flash_attention(q, k, v, causal=True)
-    ctx.sync()
-    err, ratio = check_flash(got, q, k, v, True)
-    ctx.max_err["flash_attention"] = err
-    print(f"flash_attention at the prefill's shapes (BH={bh}, S={s}, "
-          f"hd={hd}, bf16, causal): max_abs_err {err}, max |got - want| / "
-          f"bound {ratio}")
-    del got
-
-    def sdpa():
-        shp = (LM_PROMPTS, heads, s, hd)
-        return F.scaled_dot_product_attention(
-            q.view(shp), k.view(shp), v.view(shp), is_causal=True)
-
-    rows_out = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:65",
-        ms=ctx.time_call("flash_attention", lambda: k_fa.flash_attention(
-            q, k, v, causal=True), 10, profiled=True),
-        plain_ms=ctx.time_call("flash_attention plain",
-                               lambda: k_fa.flash_attention_plain(
-                                   q, k, v, causal=True), 5),
-        bound=bound(n_bytes, flops, BF16_FLOPS_PER_S),
-        library_ms=ctx.time_call("scaled_dot_product_attention", sdpa, 20))]
+    row = flash_row(ctx, "flash_attention", LM_PROMPTS, lm_cfg.n_heads,
+                    LM_PROMPT_LEN, lm_cfg.head_dim(), 5)
+    ctx.max_err["flash_attention"] = row["max_abs_err"]
+    rows_out = [row]
     for tab, name in ((table, "embedding_bag"),
                       (linear_table, "embedding_bag (linear_table)")):
         rows_out.append(embedding_bag_row(ctx, tab, rows, name))
@@ -1017,6 +1054,419 @@ def embedding_bag_row(ctx, table, rows, name):
         library_ms=ctx.time_call(f"{name}: F.embedding_bag(mode='sum')",
                                  lambda: F.embedding_bag(rows, table,
                                                          mode="sum"), 20))
+
+
+# -- training: StarCoder2-3B, the restart drill, DeepFM, the retriever -------
+# These run inside main() after the serving phases of the model zoo, with
+# the same ``ctx``; rehearse them on the CPU at reduced configs.
+
+# LM_SHAPES' train_4k: sequence 4,096; its global batch of 256 cut to a
+# micro-batch of 2 (one card), all 30 layers at published widths
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 4
+# the restart drill: published widths cut to 2 layers (a 4 GB checkpoint)
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY = 2, 8, 2
+RESTART_FAILS = {3: 1, 5: 1}
+# RECSYS_SHAPES' train_batch and retrieval_cand
+RS_TRAIN_BATCH, RS_TRAIN_STEPS = 65_536, 4
+CAND_N, CAND_D, CAND_K = 1_000_000, 256, 100
+RETRIEVER_STEPS = 300
+# the kernel path's first step against the plain path's, on the card:
+# the loss (relative) and each gradient leaf (max |kernel - plain| over
+# the leaf's max |plain|), tests/test_torch_train.py's bounds for the
+# port against the reference (bf16 activations on both sides; read on
+# the CPU: loss within 2.1e-4, leaves within 0.037 of their scale)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 0.06
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) pairs of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def grads_vs_plain(g_k, g_p):
+    """The worst leaf's max |kernel - plain| over its max |plain|."""
+    worst = (0.0, "")
+    for (name, a), (_, b) in zip(named_leaves(g_k), named_leaves(g_p)):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        worst = max(worst, (err / scale if scale else err, name))
+    return worst
+
+
+def same_bits(a, b):
+    """Whether two trees of tensors hold the same bits leaf by leaf."""
+    import torch
+
+    return all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(named_leaves(a), named_leaves(b)))
+
+
+def attention_backward_row(ctx, cfg, batch, seq, step_ms):
+    """The plain attention backward (``flash_attention_backward_plain``)
+    of one layer at the training step's shapes, timed by events; its
+    bound the larger of the bytes of q, k, v, do in and dq, dk, dv out
+    and the causal products of the recompute and the four gradient
+    products, BH S (S+1)/2 (3 dqk + 2 dv) x 2 operations, at the bf16
+    peak.  Returns its summary (per layer and per step)."""
+    import torch
+    from repro_torch.kernels import flash_attention as k_fa
+
+    bh, dqk = batch * cfg.n_heads, cfg.head_dim()
+    dv = dqk
+    g = torch.Generator(device=ctx.dev).manual_seed(8)
+    q, k, v, do = (torch.randn((bh, seq, dqk), generator=g, device=ctx.dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    flops = bh * seq * (seq + 1) * (3 * dqk + 2 * dv)
+    n_bytes = (4 * bh * seq * dqk + 3 * bh * seq * dv) * 2
+    bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+    ms = ctx.time_call("flash_attention_backward_plain (one layer)",
+                       lambda: k_fa.flash_attention_backward_plain(
+                           q, k, v, do, causal=True, chunk=cfg.attn_chunk),
+                       5)
+    out = dict(bh=bh, s=seq, dqk=dqk, chunk=cfg.attn_chunk, ms_per_layer=ms,
+               bound_ms=bnd[0], bound_by=bnd[1], flops=flops,
+               bytes=n_bytes, ms_per_step=ms * cfg.n_layers,
+               share_of_step=ms * cfg.n_layers / step_ms)
+    print(json.dumps({"plain_attention_backward": out}))
+    return out
+
+
+def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             steps=TRAIN_STEPS, seed=0):
+    """An LM's training on seeded random f32 weights: the first step's
+    loss and gradients through the flash kernel's Function held against
+    the same step through the plain ``_causal_chunk_attn`` under autograd
+    (phase ``lm_train_hold``), then ``steps`` steps of the trainer's
+    AdamW on ``lm_batcher``'s batches (``lm_train_steps``: 2 flash
+    launches a layer a step, the forward and the remat recompute), one
+    profiled step, the plain attention backward's share of a step and the
+    kernel's timing row at the step's shapes.  Returns (summary, that
+    row)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import lm_batcher
+    from repro_torch.launch import train
+    from repro_torch.models import attention, transformer
+
+    batcher = lm_batcher(cfg.vocab_size, batch, seq, seed)
+    b0 = batcher.batch(0)
+    summary = dict(model=cfg.name, n_layers=cfg.n_layers, batch=batch,
+                   seq=seq)
+    with ctx.phase("lm_train_hold"):
+        ctx.reset_peak()
+        params = transformer.init_params(cfg, seed, device=ctx.dev)
+        loss_of = functools.partial(transformer.loss_fn, cfg, batch=b0)
+        ctx.reset()
+        ctx.sync()
+        t0 = time.perf_counter()
+        loss_k, g_k = train.value_and_grad(loss_of, params)
+        ctx.sync()
+        grad_ms = (time.perf_counter() - t0) * 1000
+        counts = ctx.read(f"{cfg.name} loss and gradients ({batch} x {seq})",
+                          ["flash_attention"], absent=["embedding_bag"])
+        if counts["flash_attention"] != 2 * cfg.n_layers:
+            raise AssertionError(f"a gradient step launched flash_attention "
+                                 f"{counts['flash_attention']} times, not "
+                                 f"{2 * cfg.n_layers}")
+        ctx.reset()
+        with attention.plain_attention():
+            loss_p, g_p = train.value_and_grad(loss_of, params)
+        ctx.sync()
+        ctx.read(f"{cfg.name} loss and gradients, plain attention", [],
+                 absent=["flash_attention", "embedding_bag"])
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        worst, leaf = grads_vs_plain(g_k, g_p)
+        hold = dict(loss_kernel=float(loss_k), loss_plain=float(loss_p),
+                    loss_rel_err=rel, worst_grad_rel_err=worst,
+                    worst_grad_leaf=leaf, first_grad_ms=grad_ms,
+                    peak_device_mem_bytes=ctx.peak(),
+                    bounds=dict(loss_rtol=TRAIN_LOSS_RTOL,
+                                grad_rtol=TRAIN_GRAD_RTOL))
+        print(json.dumps({"lm_train_hold": hold}))
+        if not np.isfinite(float(loss_k)) or rel > TRAIN_LOSS_RTOL or \
+                worst > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"the kernel path's first step is off the "
+                                 f"plain path's: {hold}")
+        summary.update(hold=hold)
+        del g_k, g_p
+    with ctx.phase("lm_train_steps"):
+        ctx.reset_peak()
+        opt = train.trainer_optimizer()
+        step_fn = train.make_lm_step(cfg, opt)
+        state = (params, opt.init(params),
+                 torch.zeros((), dtype=torch.int32, device=ctx.dev))
+        del params
+        ms, losses, launches = [], [], []
+        for i in range(steps):
+            b = batcher.batch(i)
+            ctx.reset()
+            ctx.sync()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, b)
+            losses.append(float(loss))
+            ctx.sync()
+            ms.append((time.perf_counter() - t0) * 1000)
+            launches.append(ctx.read(f"{cfg.name} training step {i}",
+                                     ["flash_attention"])["flash_attention"])
+        med = float(np.median(ms[1:]))
+        summary.update(losses=losses, step_ms=ms, step_ms_median_2_on=med,
+                       tokens_per_s=batch * seq / (med / 1000),
+                       flash_launches_per_step=launches,
+                       peak_device_mem_bytes=ctx.peak())
+        print(json.dumps({"lm_train": summary}))
+        if not all(np.isfinite(losses)) or set(launches) != {
+                2 * cfg.n_layers} or int(state[2]) != steps:
+            raise AssertionError(f"training went wrong: {summary}")
+        if float(loss_k) != losses[0]:
+            raise AssertionError("the trainer's first loss is not the held "
+                                 "step's")
+    with ctx.phase("lm_train_profile"):
+        b = batcher.batch(steps)
+        ctx.profile(f"{cfg.name} training step ({batch} x {seq})",
+                    lambda: step_fn(state, b))
+        del state
+        summary["plain_attention_backward"] = attention_backward_row(
+            ctx, cfg, batch, seq, med)
+        row = flash_row(ctx, f"flash_attention (training, {batch} x {seq})",
+                        batch, cfg.n_heads, seq, cfg.head_dim(), 9,
+                        launches=2 * cfg.n_layers)
+    return summary, row
+
+
+def train_restart(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  steps=RESTART_STEPS, every=RESTART_EVERY,
+                  fail_at=RESTART_FAILS, seed=0):
+    """The restart drill: one step run twice from the same state gives the
+    same params and moments bit for bit (no atomics on the path); then a
+    run with failures injected at ``fail_at``, checkpointing every
+    ``every`` steps, against an uninterrupted run: the same losses bit
+    for bit.  The checkpoints go to a temporary directory, removed
+    after."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import lm_batcher
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.runtime.fault import FaultTolerantTrainer
+
+    opt = train.trainer_optimizer()
+    step_fn = train.make_lm_step(cfg, opt)
+    batcher = lm_batcher(cfg.vocab_size, batch, seq, seed)
+
+    def init_state():
+        params = transformer.init_params(cfg, seed, device=ctx.dev)
+        return params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=ctx.dev)
+
+    with ctx.phase("train_restart_same_step"):
+        a, loss_a = step_fn(init_state(), batcher.batch(0))
+        b, loss_b = step_fn(init_state(), batcher.batch(0))
+        if not (torch.equal(loss_a, loss_b) and same_bits(a, b)):
+            raise AssertionError("one step run twice from one state gave "
+                                 "other params, moments or loss")
+        n = sum(t.numel() for _, t in named_leaves(a[0]))
+        print(f"{cfg.name} ({cfg.n_layers} layers, {n} parameters): one "
+              f"step run twice from the same state, params, moments and "
+              f"loss bit for bit")
+        del a, b
+    tmp = tempfile.mkdtemp(prefix="train-restart-")
+    try:
+        with ctx.phase("train_restart"):
+            runs = {}
+            for name, fails in (("uninterrupted", None), ("chaos", fail_at)):
+                trainer = FaultTolerantTrainer(
+                    step_fn, init_state, batcher,
+                    CheckpointManager(f"{tmp}/{name}", keep=2),
+                    ckpt_every=every, device=ctx.dev)
+                rep = trainer.run(steps, fail_at=fails)
+                last = trainer.ckpt.latest_step()
+                runs[name] = dict(losses=rep.losses, restarts=rep.restarts,
+                                  wall_s=rep.wall_s, latest_step=last,
+                                  checkpoint_bytes=dir_bytes(
+                                      f"{tmp}/{name}/step_{last:08d}"))
+            print(json.dumps({"train_restart": dict(
+                n_layers=cfg.n_layers, steps=steps, ckpt_every=every,
+                fail_at=fail_at, **runs)}))
+            if runs["chaos"]["restarts"] != sum(fail_at.values()) or \
+                    len(runs["chaos"]["losses"]) != steps or \
+                    runs["chaos"]["losses"] != runs["uninterrupted"]["losses"]:
+                raise AssertionError("the restarted run's losses are not the "
+                                     "uninterrupted run's bit for bit")
+            print(f"restart drill: {runs['chaos']['restarts']} restarts, the "
+                  f"{steps} losses bit for bit the uninterrupted run's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"removed {tmp}: {Path(tmp).exists() is False}")
+
+
+def recsys_train(ctx, cfg, *, batch=RS_TRAIN_BATCH, steps=RS_TRAIN_STEPS,
+                 cand_n=CAND_N, cand_d=CAND_D, cand_k=CAND_K, seed=0):
+    """DeepFM's training on seeded random weights at ``batch`` examples a
+    step from ``recsys_batcher``: the first step's loss and gradients
+    through the embedding_bag kernel's Function held bit for bit against
+    the same step through ``embedding_bag_plain`` under the same
+    backward; ``steps`` AdamW steps (2 embedding_bag launches each), the
+    backward's time and the bag backward's (``rows_grad``) alone; then
+    ``score_candidates`` at retrieval_cand against a full sort.  Returns
+    (summary, the embedding_bag timing row at the training batch)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import recsys_batcher
+    from repro_torch.kernels import embedding_bag as k_eb
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+
+    batcher = recsys_batcher(cfg.n_dense, cfg.n_sparse, cfg.rows_per_field,
+                             batch, seed)
+    b0 = batcher.batch(0)
+    summary = dict(model=cfg.name, batch=batch)
+    with ctx.phase("recsys_train_hold"):
+        params = recsys.init_params(cfg, seed, device=ctx.dev)
+        loss_of = functools.partial(recsys.loss_fn, cfg, batch=b0)
+        ctx.reset()
+        loss_k, g_k = train.value_and_grad(loss_of, params)
+        ctx.sync()
+        counts = ctx.read(f"{cfg.name} loss and gradients (batch {batch})",
+                          ["embedding_bag"], absent=["flash_attention"])
+        if counts["embedding_bag"] != 2:
+            raise AssertionError("a DeepFM gradient step launched "
+                                 f"embedding_bag {counts['embedding_bag']} "
+                                 f"times")
+        ctx.reset()
+        with recsys.plain_bags():
+            loss_p, g_p = train.value_and_grad(loss_of, params)
+        ctx.sync()
+        ctx.read(f"{cfg.name} loss and gradients, plain bags", [],
+                 absent=["embedding_bag", "flash_attention"])
+        if not (torch.equal(loss_k, loss_p) and same_bits(g_k, g_p)):
+            raise AssertionError("DeepFM's first step through the kernel is "
+                                 "not the plain path's bit for bit")
+        print(f"{cfg.name}: the first step's loss {float(loss_k)} and every "
+              f"gradient (table {tuple(g_k['table'].shape)}) bit for bit "
+              f"the plain embedding_bag path's")
+        del g_k, g_p
+    with ctx.phase("recsys_train_steps"):
+        opt = train.trainer_optimizer()
+        step_fn = train.make_recsys_step(cfg, opt)
+        state = (params, opt.init(params),
+                 torch.zeros((), dtype=torch.int32, device=ctx.dev))
+        ms, losses = [], []
+        for i in range(steps):
+            b = batcher.batch(i)
+            ctx.reset()
+            ctx.sync()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, b)
+            losses.append(float(loss))
+            ctx.sync()
+            ms.append((time.perf_counter() - t0) * 1000)
+            if ctx.read(f"{cfg.name} training step {i}",
+                        ["embedding_bag"])["embedding_bag"] != 2:
+                raise AssertionError("a DeepFM step did not launch "
+                                     "embedding_bag twice")
+        if float(loss_k) != losses[0] or not all(np.isfinite(losses)):
+            raise AssertionError(f"DeepFM training went wrong: {losses}")
+        b = batcher.batch(steps)
+        loss_b = functools.partial(recsys.loss_fn, cfg, batch=b)
+        fwd = ctx.time_call("DeepFM loss (forward)", lambda: loss_b(params),
+                            5)
+        both = ctx.time_call("DeepFM loss and gradients",
+                             lambda: train.value_and_grad(loss_b, params), 5)
+        ids = recsys._combined_ids(torch.as_tensor(b["sparse"],
+                                                   device=ctx.dev), cfg)
+        g = torch.ones((batch, cfg.embed_dim), device=ctx.dev)
+        bag_bwd = ctx.time_call(
+            "the bag's table gradient (EmbeddingBagFunction.backward)",
+            lambda: k_eb.rows_grad(ids, g[:, None].expand(
+                -1, cfg.n_sparse, -1).reshape(-1, cfg.embed_dim),
+                params["table"].shape[0]), 5)
+        summary.update(losses=losses, step_ms=ms,
+                       step_ms_median_2_on=float(np.median(ms[1:])),
+                       examples_per_s=batch / (np.median(ms[1:]) / 1000),
+                       forward_ms=fwd, forward_backward_ms=both,
+                       backward_ms=both - fwd, bag_backward_ms=bag_bwd)
+        print(json.dumps({"recsys_train": summary}))
+        row = embedding_bag_row(ctx, params["table"].detach(),
+                                ids.to(torch.int32).contiguous(),
+                                "embedding_bag (train_batch)")
+        row["launches"] = 2
+        del state
+    with ctx.phase("recsys_score_candidates"):
+        gen = torch.Generator(device=ctx.dev).manual_seed(7)
+        user = torch.randn((1, cand_d), generator=gen, device=ctx.dev)
+        cand = torch.randn((cand_n, cand_d), generator=gen, device=ctx.dev)
+        s, i = recsys.score_candidates(user, cand, k=cand_k)
+        want = torch.sort((user @ cand.T)[0], descending=True, stable=True)
+        top = want.values[:cand_k + 1]
+        ties = int((top[1:] == top[:-1]).sum())
+        if ties or not (torch.equal(i[0].long(), want.indices[:cand_k]) and
+                        torch.equal(s[0], want.values[:cand_k])):
+            raise AssertionError(f"score_candidates is not the brute-force "
+                                 f"top-{cand_k} ({ties} ties)")
+        cand_ms = ctx.time_call("score_candidates (retrieval_cand)",
+                                lambda: recsys.score_candidates(
+                                    user, cand, k=cand_k), 10)
+        summary.update(score_candidates_ms=cand_ms)
+        print(f"score_candidates at retrieval_cand (1 x {cand_n} x {cand_d},"
+              f" k={cand_k}) == a full sort's top-{cand_k}, no ties; "
+              f"{cand_ms:.6f} ms")
+        del cand
+    return summary, row
+
+
+def retriever_lifecycle(ctx, *, steps=RETRIEVER_STEPS, big=True, **sizes):
+    """``examples/train_retriever.py``'s port end to end (``--big``: two
+    ~52M-parameter encoders): contrastive training through the port's
+    trainer and AdamW, the corpus embedded, ``build_index``,
+    ``choose_n_probe``, fixed and patience search on the fused kernel;
+    then each policy's fused search against the per-probe kernel pair
+    on the same embeddings, bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import search
+    from repro_torch.examples import train_retriever
+
+    with ctx.phase("retriever_lifecycle"):
+        with tempfile.TemporaryDirectory(prefix="retriever-") as tmp:
+            ctx.reset()
+            out = train_retriever.main(steps=steps, big=big, ckpt=tmp,
+                                       device=ctx.dev, **sizes)
+            ctx.sync()
+            ctx.read("retriever lifecycle (fixed and patience search)",
+                     ["ivf_scan_merge"],
+                     absent=["flash_attention", "embedding_bag"])
+        losses = out["losses"]
+        print(json.dumps({"retriever_lifecycle": dict(
+            steps=len(losses), loss_every_50=losses[::50] + losses[-1:],
+            n_probe=out["n_probe"], results=out["results"])}))
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the retriever's loss did not fall")
+        for pol in out["policies"]:
+            fused = search(out["index"], out["queries"], pol,
+                           use_fused_kernel=True, chunk=4)
+            pair = search(out["index"], out["queries"], pol,
+                          use_scan_kernel=True, use_topk_kernel=True)
+            for name in ("topk_ids", "probes", "topk_scores"):
+                if not torch.equal(getattr(fused, name), getattr(pair, name)):
+                    raise AssertionError(f"retriever {pol.name}: fused != "
+                                         f"per-probe pair on {name}")
+        print("retriever: fused == per-probe kernel pair bit for bit for "
+              "fixed and patience")
+    return out["results"]
 
 
 # -- the learned exit stages: REG, classifier and cascades (Table 2) ---------
@@ -3204,6 +3654,19 @@ def main() -> None:
     print(json.dumps({"lm_zoo": zoo}))
     rs_params, rs_rows = recsys_serve(ctx, get_arch(RS_ARCH).model)
 
+    # -- 5b. training: StarCoder2-3B, the restart drill, DeepFM, the
+    # retriever's life cycle ----------------------------------------------
+    lm_cfg = get_arch(LM_ARCH).model
+    lm_tr, flash_train = lm_train(ctx, lm_cfg)
+    torch.cuda.empty_cache()
+    train_restart(ctx, dataclasses.replace(lm_cfg, n_layers=RESTART_LAYERS))
+    torch.cuda.empty_cache()
+    rs_tr, bag_train = recsys_train(ctx, get_arch(RS_ARCH).model)
+    torch.cuda.empty_cache()
+    retriever = retriever_lifecycle(ctx)
+    print(json.dumps({"training": dict(lm=lm_tr, recsys=rs_tr,
+                                       retriever=retriever)}))
+
     # -- 6. timing ------------------------------------------------------------
     rows = []
     with phase("timing"):
@@ -3477,6 +3940,8 @@ def main() -> None:
         rows.append(mla_flash_row(
             ctx, get_arch("minicpm3-4b").model,
             zoo["minicpm3"]["flash_attention_launches"]))
+        # the training paths' rows, timed in their phases
+        rows += [flash_train, bag_train]
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:

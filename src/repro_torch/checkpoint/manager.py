@@ -12,8 +12,11 @@ arrays.  Its leaves are written in JAX's flatten order (dict keys
 sorted) under the key ``jax.tree_util.keystr`` gives them
 (``"['centroids']"`` for a dict key, ``"[0]"`` for a list index,
 ``".name"`` for a named-tuple field), so either package reads a step the
-other wrote.  Elastic restore onto a mesh (``pspecs``/``shardings``)
-comes with the distributed slice.
+other wrote.  ``restore(..., mesh=, placements=)`` places each leaf
+on a ``DeviceMesh`` by its placements (``Shard(dim)`` / ``Replicate()``,
+``torch.distributed.tensor``): the elastic restore of
+``runtime.elastic`` onto a mesh of any size, since a step holds the
+global arrays.
 """
 from __future__ import annotations
 
@@ -238,9 +241,17 @@ class CheckpointManager:
         return step, os.path.join(self.root, f"step_{step:08d}")
 
     def restore(self, template: Tree, step: Optional[int] = None, *,
-                device: DeviceLike = None) -> Tuple[int, Tree]:
+                device: DeviceLike = None, mesh=None,
+                placements: Optional[Tree] = None) -> Tuple[int, Tree]:
         """Load into the structure of ``template``, every leaf a tensor
-        on ``device`` (CUDA unless ``device="cpu"``)."""
+        on ``device`` (CUDA unless ``device="cpu"``).  With ``mesh`` and
+        ``placements`` (a tree like ``template`` whose leaves are each a
+        sequence of one placement per mesh dimension), every leaf is
+        instead a ``DTensor`` distributed over ``mesh`` from the global
+        array, which every rank reads: each rank of the mesh must call
+        this."""
+        if placements is not None:
+            return self._restore_placed(template, step, mesh, placements)
         dev = resolve_device(device)
         step, path = self._step_dir(step)
         index = _read_index(path)
@@ -252,6 +263,31 @@ class CheckpointManager:
                 f"{n_leaves}")
         tensors = (torch.from_numpy(a).to(dev) for a in arrays)
         return step, _unflatten(template, tensors)
+
+    def _restore_placed(self, template, step, mesh, placements):
+        from torch.distributed.tensor import Placement, distribute_tensor
+
+        def leaves(tree):
+            if isinstance(tree, (list, tuple)) and tree and all(
+                    isinstance(p, Placement) for p in tree):
+                return [tuple(tree)]
+            if isinstance(tree, dict):
+                return [x for k in sorted(tree) for x in leaves(tree[k])]
+            if isinstance(tree, (list, tuple)):
+                return [x for v in tree for x in leaves(v)]
+            raise ValueError(f"placements: {tree!r} is not a sequence of "
+                             f"Placement")
+
+        specs = leaves(placements)
+        dev = "cpu" if mesh.device_type == "cpu" else None
+        step, local = self.restore(template, step, device=dev)
+        tensors = [t for _, t in _leaf_paths(local)]
+        if len(specs) != len(tensors):
+            raise ValueError(f"{len(specs)} placements for {len(tensors)} "
+                             f"leaves")
+        placed = (distribute_tensor(t, mesh, spec)
+                  for t, spec in zip(tensors, specs))
+        return step, _unflatten(template, placed)
 
     def load_arrays(self, step: Optional[int] = None
                     ) -> Tuple[int, Dict[str, np.ndarray]]:

@@ -14,6 +14,17 @@ refused opt-in comes back as the launch's error code and raises.
 The bf16 kernel rounds P to bf16 before P V (as the JAX model's own
 attention does); the plain version keeps P in f32, as the Pallas
 kernel.  :func:`bf16_bound` is how far apart the two may be.
+
+:class:`FlashAttentionFunction` puts the wrapper under autograd.  The
+reference trains through no Pallas kernel: it differentiates its
+chunked jnp attention (``repro.models.attention._causal_chunk_attn``),
+and so its gradients are of a function that rounds P to v's dtype
+before P V.  The backward, :func:`flash_attention_backward_plain`,
+recomputes that function in plain PyTorch one query block at a time (no
+(S, S) matrix is held) and returns its exact gradients, rounded where
+the reference's are.  It reads only the saved inputs, so under
+activation checkpointing, where the forward runs twice, it gives the
+same result.
 """
 from __future__ import annotations
 
@@ -98,3 +109,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, do: torch.Tensor, *,
+                                   causal: bool = True, chunk: int = 512):
+    """(dq, dk, dv) of ``_causal_chunk_attn`` at query blocks of
+    ``chunk`` for the output cotangent ``do``: q, k (BH, S, dqk), v and
+    do (BH, S, dv), each gradient in its input's dtype.
+
+    Per block, as the reference's scan body: f32 logits q k^T / sqrt(dqk)
+    (the causal mask at -1e30), the f32 softmax P, P in v's dtype before
+    P V.  The transposes round where the reference's do: dP = do V^T
+    and dV = P^T do in v's dtype, the softmax's gradient in f32, dQ and
+    dK from f32 products rounded to their dtype per block; dK and dV
+    are summed over the blocks in their own dtype, last block first, as
+    the scan's transpose adds its constants' cotangents.  A causal
+    block reads the keys up to its last query only: the rest have P = 0
+    and add exact zeros."""
+    bh, s, dqk = q.shape
+    scale = 1.0 / math.sqrt(dqk)
+    chunk = min(chunk, s)
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    kf = k.float()
+    for r0 in reversed(range(0, s, chunk)):
+        r1 = min(r0 + chunk, s)
+        kend = r1 if causal else s
+        qi = q[:, r0:r1].float()
+        logits = torch.bmm(qi, kf[:, :kend].transpose(1, 2)) * scale
+        if causal:
+            mask = torch.arange(kend, device=q.device)[None, :] \
+                <= torch.arange(r0, r1, device=q.device)[:, None]
+            logits = torch.where(mask[None], logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        doi = do[:, r0:r1].to(v.dtype)
+        dv[:, :kend] += torch.bmm(p.to(v.dtype).transpose(1, 2), doi)
+        dp = torch.bmm(doi, v[:, :kend].transpose(1, 2)).float()
+        # the softmax's transpose: P dP - P sum(P dP)
+        dl = p * dp
+        dl = (dl - p * dl.sum(-1, keepdim=True)) * scale
+        del p, dp
+        dq[:, r0:r1] = torch.bmm(dl, kf[:, :kend]).to(q.dtype)
+        dk[:, :kend] += torch.bmm(dl.transpose(1, 2), qi).to(k.dtype)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` (the kernel on the card, the plain version
+    on the CPU) with :func:`flash_attention_backward_plain`'s
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward_plain(
+            q, k, v, do, causal=ctx.causal, chunk=ctx.chunk), None, None)

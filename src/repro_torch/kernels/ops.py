@@ -6,7 +6,8 @@ the reference's ``ops`` layer does around its kernels happens here:
 the -inf masking of ``ivf_scan``, the -1 padding of ``ids2d``, offsets
 in ``blk_l`` units, the sentinel -> -inf map of ``ivf_scan_merge``, and
 contiguous inputs and int32 ids for ``flash_attention`` and
-``embedding_bag``.
+``embedding_bag``, which run under autograd (their ``Function``s: the
+kernel forward, a plain PyTorch backward).
 The delta buffer needs no padding here: the CUDA kernels take any
 capacity, where the Pallas kernel wanted ``blk_dl`` multiples.
 """
@@ -24,11 +25,14 @@ from repro_torch.kernels import ivf_scan_merge as _sm
 from repro_torch.kernels import topk_merge as _tm
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    chunk: int = 512) -> torch.Tensor:
     """q, k (BH, S, dqk), v (BH, S, dv) -> (BH, S, dv) in q's dtype; any
-    S."""
-    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal)
+    S.  Differentiable: the gradients are those of the reference's
+    chunked attention at query blocks of ``chunk``
+    (``flash_attention.flash_attention_backward_plain``)."""
+    return _fa.FlashAttentionFunction.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal, chunk)
 
 
 def _block_offsets(offsets: torch.Tensor, blk_l: int) -> torch.Tensor:
@@ -97,6 +101,7 @@ def topk_merge(scores, ids, new_scores, new_ids,
 
 def embedding_bag(table, ids) -> torch.Tensor:
     """table (R, D) f32; ids (B, F) -> (B, D) sum-combined bags (int64
-    ids are converted to int32)."""
-    return _eb.embedding_bag(table.contiguous(),
-                             ids.to(torch.int32).contiguous())
+    ids are converted to int32).  Differentiable in ``table``: the
+    deterministic dense (R, D) gradient of ``embedding_bag.rows_grad``."""
+    return _eb.EmbeddingBagFunction.apply(table.contiguous(),
+                                          ids.to(torch.int32).contiguous())

@@ -12,6 +12,15 @@ rounds the probabilities to bf16 before P V, as the chunked path does;
 only the plain version on the CPU keeps P in f32, so there the port
 agrees with the reference at bf16 tolerance.
 
+Both run under autograd: ``ops.flash_attention``'s backward is the
+gradient of the reference's ``_causal_chunk_attn`` at the config's
+``attn_chunk`` (see ``kernels.flash_attention``).  ``_causal_chunk_attn``
+itself is ported as the plain path: inside :func:`plain_attention` the
+two forwards attend through it, and autograd differentiates its plain
+ops, the path the kernel's is held against (tests, ``chip_smoke.py``).
+The GQA repeat of the KV heads is an ``expand``, whose backward is a
+sum (no scatter).
+
 The reference's sharding annotations (``act``) have no meaning on one
 device and are gone.  Caches are written in place where the reference
 returns updated arrays.
@@ -19,7 +28,8 @@ returns updated arrays.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from contextlib import contextmanager
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +64,59 @@ def _heads_flat(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * h, s, hd)
 
 
+def _causal_chunk_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """Flat-head chunked causal attention, the reference's: q, k
+    (B,S,H,dqk), v (B,S,H,dv) -> (B,S,H,dv) in v's dtype.  Per query
+    block of ``chunk``: f32 logits scaled by 1/sqrt(dqk), the causal
+    mask at -1e30, an f32 softmax, P in v's dtype before P V.  The
+    reference pads the last block's queries and drops their rows; here
+    the last block is shorter (the same rows)."""
+    s, dqk = q.shape[1], q.shape[-1]
+    chunk = min(chunk, s)
+    scale = 1.0 / math.sqrt(dqk)
+    kf = k.float()
+    kpos = torch.arange(k.shape[1], device=q.device)
+    out = []
+    for r0 in range(0, s, chunk):
+        qi = q[:, r0: r0 + chunk]
+        qpos = torch.arange(r0, r0 + qi.shape[1], device=q.device)
+        logits = torch.einsum("bchd,bshd->bhcs", qi.float(), kf) * scale
+        mask = kpos[None, :] <= qpos[:, None]           # (chunk, S)
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        out.append(torch.einsum("bhcs,bshv->bchv", p.to(v.dtype), v))
+    return torch.cat(out, 1)
+
+
+_plain: List[bool] = []
+
+
+@contextmanager
+def plain_attention():
+    """While open, ``gqa_forward`` and ``mla_forward`` attend through
+    :func:`_causal_chunk_attn` instead of the flash kernel: the plain
+    path, differentiated by autograd."""
+    _plain.append(True)
+    try:
+        yield
+    finally:
+        _plain.pop()
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            chunk: int) -> torch.Tensor:
+    """Causal attention of (B,S,H,dqk) q, k and (B,S,H,dv) v ->
+    (B,S,H*dv): the flash kernel's Function, or inside
+    :func:`plain_attention` the plain chunked path."""
+    b, s, h, dv = v.shape
+    if _plain:
+        return _causal_chunk_attn(q, k, v, chunk).reshape(b, s, h * dv)
+    o = ops.flash_attention(_heads_flat(q), _heads_flat(k), _heads_flat(v),
+                            causal=True, chunk=chunk)
+    return o.reshape(b, h, s, dv).permute(0, 2, 1, 3).reshape(b, s, h * dv)
+
+
 def gqa_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
                 positions: torch.Tensor, *, return_kv: bool = False):
     """x (B, S, d) bf16 -> (B, S, d).  With ``return_kv``, also the
@@ -68,12 +131,9 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     # repeat the KV heads to H: head i reads KV head i // g
-    kr = k.repeat_interleave(g, dim=2) if g > 1 else k
-    vr = v.repeat_interleave(g, dim=2) if g > 1 else v
-    o = ops.flash_attention(_heads_flat(q), _heads_flat(kr), _heads_flat(vr),
-                            causal=True)
-    o = o.reshape(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, h * hd)
-    out = dense(p["wo"], o)
+    kr, vr = ((t[:, :, :, None].expand(b, s, kv, g, hd).reshape(b, s, h, hd)
+               if g > 1 else t) for t in (k, v))
+    out = dense(p["wo"], _attend(q, kr, vr, cfg.attn_chunk))
     return (out, k, v) if return_kv else out
 
 
@@ -241,11 +301,7 @@ def mla_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     v = dense(p["wv_b"], ckv).reshape(b, s, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], -1)
-    o = ops.flash_attention(_heads_flat(q), _heads_flat(k), _heads_flat(v),
-                            causal=True)
-    o = o.reshape(b, h, s, m.v_head_dim).permute(0, 2, 1, 3) \
-        .reshape(b, s, h * m.v_head_dim)
-    out = dense(p["wo"], o)
+    out = dense(p["wo"], _attend(q, k, v, cfg.attn_chunk))
     return (out, ckv, k_rope[:, :, 0]) if return_latent else out
 
 

@@ -5,6 +5,12 @@ layouts (``{"w": (d_in, d_out), "b": (d_out,)}``), so a JAX parameter
 tree carries across as numpy arrays.  Init draws from an explicit
 ``torch.Generator``, on the generator's device; the numbers differ from
 ``jax.random``'s, so parity tests carry the reference's weights across.
+
+Row lookups into a table go through :func:`gather_rows`, whose
+gradient is a deterministic segment sum: autograd's own backward of
+``table[ids]`` adds repeated rows by atomics on the card, in an order
+that changes between runs, and a restarted run would not replay the
+uninterrupted one's bits.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.embedding_bag import rows_grad
 
 Params = Dict[str, torch.Tensor]
 
@@ -41,6 +49,26 @@ def normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal f32 of ``shape`` on the generator's device."""
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        return rows_grad(ids, g.reshape(ids.numel(), -1), ctx.n_rows), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a 2-D table: ids (...) -> (..., D), with the
+    table's gradient summed row by row in the order of the ids
+    (``kernels.embedding_bag.rows_grad``), the same bits on every run."""
+    return _GatherRows.apply(table, ids.long())
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -112,3 +140,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable CE over the last axis, in f32; with ``mask``, the masked
+    mean (over at least one token)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -30,7 +30,8 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed import context as ctx
 from repro_torch.distributed.collectives import all_gather, all_reduce
 from repro_torch.launch.mesh import axis_index
-from repro_torch.models.layers import dense, dense_init, mlp, mlp_init, normal
+from repro_torch.models.layers import (dense, dense_init, gather_rows, mlp,
+                                       mlp_init, normal)
 
 Params = Dict[str, torch.Tensor]
 # the expert weights: FSDP-sharded on dim 1 over the DP axes under a mesh
@@ -145,7 +146,8 @@ def _moe_core(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     for log in _open_logs:
         log.calls.append((probs, top_e, (~keep).sum()))
     tok_of = perm // k                                          # token/slot
-    gathered = xt[tok_of]                                       # (T*K, d)
+    # each token k times: its gradient is summed without atomics
+    gathered = gather_rows(xt, tok_of)                          # (T*K, d)
     # one row past the buffer takes the dropped tokens' writes
     buf = xt.new_zeros((e * capacity + 1, d))
     buf[slot] = torch.where(keep[:, None], gathered, 0.0).to(xt.dtype)

@@ -1,5 +1,5 @@
-"""RecSys serving: DeepFM / DCN-v2 / xDeepFM / two-tower retrieval (port
-of the serving path of ``repro.models.recsys``).
+"""RecSys models: DeepFM / DCN-v2 / xDeepFM / two-tower retrieval,
+training and serving (port of ``repro.models.recsys``).
 
 All sparse fields share one combined table (a row offset per field).
 DeepFM's FM term sums each example's embedding rows twice (the (B, D)
@@ -7,27 +7,32 @@ DeepFM's FM term sums each example's embedding rows twice (the (B, D)
 through ``kernels.ops.embedding_bag`` (the CUDA kernel on the card, its
 plain ordered sum on the CPU), the kernel the reference names for this
 hot path.  The (B, F, D) gather that feeds the MLP and the square term
-stays plain indexing, as the reference's ``jnp.take``.
+stays a plain lookup (``layers.gather_rows``), as the reference's
+``jnp.take``.  Both run under autograd with deterministic table
+gradients (a sort and a segment sum, no atomics); inside
+:func:`plain_bags` the bag sums run through ``embedding_bag_plain``
+under the same backward, the path the kernel's is held against.
 
 The MLPs run in f32 (the reference passes ``dtype=jnp.float32``), with
 TF32 off on the card.  ``init_params`` and ``params_from_numpy`` run on
-the card unless given ``device="cpu"``; ``serve_logits`` runs where the
-params lie.  Training (``loss_fn``, ``two_tower_loss``) and
-``score_candidates`` are not ported yet (``ROADMAP.md``).
+the card unless given ``device="cpu"``; ``loss_fn``, ``serve_logits``
+and ``score_candidates`` run where their inputs lie.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from contextlib import contextmanager
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense, dense_init, from_numpy,
-                                       normal, tree_map)
+                                       gather_rows, normal, tree_map)
 
 Params = Dict[str, object]
 
@@ -49,7 +54,7 @@ def _combined_ids(ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      cfg: RecsysConfig) -> torch.Tensor:
     """ids (B, F) field-local -> (B, F, D) via one combined-table gather."""
-    return table[_combined_ids(ids, cfg).long()]
+    return gather_rows(table, _combined_ids(ids, cfg))
 
 
 def _mlp_init(gen: torch.Generator, dims: Tuple[int, ...]) -> Params:
@@ -117,6 +122,27 @@ def params_from_numpy(cfg: RecsysConfig, tree: Params,
 # forward per interaction type
 # ---------------------------------------------------------------------------
 
+_plain: List[bool] = []
+
+
+@contextmanager
+def plain_bags():
+    """While open, DeepFM's bag sums run through ``embedding_bag_plain``
+    (the kernel's plain version) with the kernel path's backward."""
+    _plain.append(True)
+    try:
+        yield
+    finally:
+        _plain.pop()
+
+
+def _bag(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    if _plain:
+        return _eb.EmbeddingBagPlainFunction.apply(
+            table.contiguous(), rows.to(torch.int32).contiguous())
+    return ops.embedding_bag(table, rows)
+
+
 
 def _batch(params: Params, batch: Dict) -> Dict[str, torch.Tensor]:
     """The features serving reads, on the params' device (labels stay)."""
@@ -137,8 +163,8 @@ def forward(cfg: RecsysConfig, params: Params,
 
     if cfg.interaction == "fm":
         rows = _combined_ids(ids, cfg)
-        lin = ops.embedding_bag(params["linear_table"], rows)[:, 0]
-        sv = ops.embedding_bag(params["table"], rows)        # (B, D)
+        lin = _bag(params["linear_table"], rows)[:, 0]
+        sv = _bag(params["table"], rows)                     # (B, D)
         fm = 0.5 * (sv * sv - (emb * emb).sum(1)).sum(1)
         deep = _mlp_apply(params["mlp"], x0)[:, 0]
         return lin + fm + deep
@@ -167,6 +193,19 @@ def dataclass_like(cfg: RecsysConfig) -> RecsysConfig:
     return dataclasses.replace(cfg, embed_dim=1)
 
 
+def loss_fn(cfg: RecsysConfig, params: Params,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The CTR models' mean logistic loss on ``batch["label"]`` (B,),
+    with the logits' mean; two-tower's in-batch softmax."""
+    if cfg.interaction == "dot":
+        return two_tower_loss(cfg, params, batch)
+    logit = forward(cfg, params, batch)
+    y = torch.as_tensor(batch["label"], device=logit.device)
+    loss = (torch.clamp_min(logit, 0) - logit * y
+            + torch.log1p(torch.exp(-logit.abs()))).mean()
+    return loss, {"logit_mean": logit.mean()}
+
+
 # ---------------------------------------------------------------------------
 # two-tower retrieval
 # ---------------------------------------------------------------------------
@@ -184,6 +223,28 @@ def tower_embeddings(cfg: RecsysConfig, params: Params,
     u = u / torch.clamp(torch.linalg.norm(u, dim=1, keepdim=True), min=1e-6)
     v = v / torch.clamp(torch.linalg.norm(v, dim=1, keepdim=True), min=1e-6)
     return u, v
+
+
+def two_tower_loss(cfg: RecsysConfig, params: Params,
+                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """In-batch sampled softmax (RecSys'19) at temperature 0.05, and the
+    in-batch top-1 accuracy."""
+    u, v = tower_embeddings(cfg, params, batch)
+    logits = (u @ v.T) / 0.05                        # (B, B)
+    labels = torch.arange(u.shape[0], device=u.device)
+    lse = torch.logsumexp(logits, dim=1)
+    loss = (lse - torch.diagonal(logits)).mean()
+    acc = (logits.argmax(1) == labels).float().mean()
+    return loss, {"acc": acc}
+
+
+def score_candidates(user_emb: torch.Tensor, cand_emb: torch.Tensor,
+                     k: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The retrieval_cand brute-force path: (Q, D) x (C, D) -> the top-k
+    scores and int32 candidate ids, best first (``lax.top_k``'s order
+    where no two scores tie)."""
+    s, i = torch.topk(user_emb @ cand_emb.T, k, dim=-1)
+    return s, i.to(torch.int32)
 
 
 def serve_logits(cfg: RecsysConfig, params: Params,

@@ -1,10 +1,12 @@
-"""Decoder-only LM serving: GQA or MLA attention, dense or MoE FFNs,
-bf16 or int8 KV caches (port of the serving path of
+"""Decoder-only LM: GQA or MLA attention, dense or MoE FFNs, bf16 or
+int8 KV caches, training and serving (port of
 ``repro.models.transformer``).
 
 Entry points:
   init_params(cfg, seed, device=None)        -> params
   params_from_numpy(cfg, tree, device=None)  -> params from a reference tree
+  train_state_from_numpy(cfg, state, device=None) -> a training state
+  loss_fn(cfg, params, batch)                -> (loss, {"ce", "aux"})
   forward(cfg, params, tokens)               -> (logits f32 (B,S,V), aux)
   prefill(cfg, params, tokens, max_seq)      -> (last logits (B,V), LMCache)
   decode_step(cfg, params, cache, token, pos) -> (logits (B,V), cache)
@@ -18,23 +20,31 @@ layer loop is a Python loop).  Weights are f32, or bf16 when
 its compute type on use, as the reference does.  ``prefill`` and
 ``decode_step`` run where the params lie; ``init_params`` and
 ``params_from_numpy`` run on the card unless given ``device="cpu"``.
-``decode_step`` writes the cache in place.  Training (``loss_fn``) is
-not ported yet (``ROADMAP.md``, Queue 1 item 6).
+``decode_step`` writes the cache in place.  ``loss_fn`` runs every
+layer under activation checkpointing (``torch.utils.checkpoint``, not
+reentrant; ``remat_policy="dots"`` saves the matrix products' outputs,
+as ``jax.checkpoint_policies.dots_saveable``) and the cross-entropy in
+chunks of tokens whose head product is recomputed in the backward, so
+the (B, S, V) logits never exist; the flash kernel runs again in each
+layer's recompute.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (dense, dense_init, from_numpy, mlp,
-                                       mlp_init, normal, rmsnorm,
-                                       rmsnorm_init, tree_map)
+from repro_torch.models.layers import (dense, dense_init, from_numpy,
+                                       gather_rows, mlp, mlp_init, normal,
+                                       rmsnorm, rmsnorm_init, tree_map)
 
 Params = Dict[str, Any]
 
@@ -111,6 +121,40 @@ def params_from_numpy(cfg: TransformerConfig, tree: Params,
     return p
 
 
+def _mirrors(tree, params) -> bool:
+    """Whether ``tree`` has ``params``' structure, an array of each
+    parameter's shape at each of its leaves."""
+    if isinstance(params, dict):
+        return isinstance(tree, dict) and set(tree) == set(params) and \
+            all(_mirrors(tree[k], params[k]) for k in params)
+    return hasattr(tree, "shape") and tuple(tree.shape) == \
+        tuple(np.shape(params))
+
+
+def train_state_from_numpy(cfg: TransformerConfig, state,
+                           device: DeviceLike = None):
+    """The reference's training state ``(params, opt_state, step)``
+    (numpy arrays, layers stacked) as the port's, on ``device``.  The
+    optimizer state must mirror the params, as AdamW's ``{"mu", "nu"}``
+    and SGDM's momentum do; each of its trees is unstacked as the
+    params are.  Adafactor's factored state of a stacked leaf spans the
+    layers, which the port keeps apart, and does not carry across."""
+    params, opt_state, step = state
+    dev = resolve_device(device)
+    if isinstance(opt_state, dict) and set(opt_state) == {"mu", "nu"} and \
+            all(_mirrors(v, params) for v in opt_state.values()):
+        opt = {k: params_from_numpy(cfg, v, dev)
+               for k, v in opt_state.items()}
+    elif _mirrors(opt_state, params):
+        opt = params_from_numpy(cfg, opt_state, dev)
+    else:
+        raise ValueError("train_state_from_numpy carries an optimizer state "
+                         "that mirrors the params (AdamW's mu and nu, "
+                         "SGDM's momentum)")
+    step = torch.tensor(np.array(step), dtype=torch.int32, device=dev)
+    return params_from_numpy(cfg, params, dev), opt, step
+
+
 def _all_layers(cfg: TransformerConfig,
                 params: Params) -> List[Tuple[Params, bool]]:
     """Every layer in order with its ``dense_ffn`` flag: the leading
@@ -130,7 +174,7 @@ def _tokens(params: Params, tokens) -> torch.Tensor:
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(torch.bfloat16)
+    return gather_rows(params["embed"], tokens).to(torch.bfloat16)
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
@@ -160,16 +204,47 @@ def _block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     return x + f, aux, kv
 
 
-def forward_hidden(cfg: TransformerConfig, params: Params, tokens
+# the ops whose outputs remat_policy="dots" saves: the matrix products
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+                 positions: torch.Tensor, dense_ffn: bool):
+    """One layer under activation checkpointing: (x, aux)."""
+    def body(lp, x):
+        x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
+        return x, aux
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return checkpoint(body, lp, x, use_reentrant=False, **kw)
+
+
+def forward_hidden(cfg: TransformerConfig, params: Params, tokens, *,
+                   remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (final hidden (B,S,d) post-norm, summed aux loss)."""
+    """tokens (B,S) -> (final hidden (B,S,d) post-norm, summed aux loss).
+    With ``remat``, each layer runs under activation checkpointing."""
     tokens = _tokens(params, tokens)
     b, s = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, dense_ffn in _all_layers(cfg, params):
-        x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
+        # the reference checkpoints the scanned layers, not the leading
+        # dense ones
+        if remat and not dense_ffn:
+            x, aux = _remat_block(cfg, lp, x, positions, dense_ffn)
+        else:
+            x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
         aux_total = aux_total + aux
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux_total
 
@@ -188,6 +263,38 @@ def _head_logits(cfg: TransformerConfig, params: Params,
     if cfg.tie_embeddings:
         return x.float() @ params["embed"].float().T
     return dense(params["out"], x, dtype=torch.float32)
+
+
+def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict, *,
+            ce_chunk: int = 512) -> Tuple[torch.Tensor, Dict]:
+    """Chunked cross-entropy plus the MoE aux loss: (loss, {"ce",
+    "aux"}).  ``batch`` holds (B,S) ``tokens`` and ``labels`` (a label
+    under 0 is masked).  The layers run under remat; the head product
+    and CE run per (B, ce_chunk) token slab under a checkpoint that
+    saves nothing (the reference's ``nothing_saveable``), so the peak
+    extra memory is one slab's B * ce_chunk * V logits."""
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"], remat=True)
+    b, s, _ = hidden.shape
+    labels = torch.as_tensor(batch["labels"], device=hidden.device).long()
+    mask = (labels >= 0).float()
+    chunk = min(ce_chunk, s)
+    if s % chunk != 0:
+        chunk = s
+
+    def chunk_nll(xc, labc, mkc):
+        logits = _head_logits(cfg, params, xc)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labc[..., None])[..., 0]
+        return ((lse - gold) * mkc).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    lab = labels.clamp_min(0)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(chunk_nll, hidden[:, sl], lab[:, sl],
+                                   mask[:, sl], use_reentrant=False)
+    ce = total / torch.clamp_min(mask.sum(), 1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

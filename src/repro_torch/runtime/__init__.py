@@ -1,5 +1,4 @@
-"""Serving-side resilience (port of ``repro.runtime``): the retry and
-straggler policy (``straggler``), the injected failure (``fault``) and
-the seeded chaos harness (``chaos``).  ``FaultTolerantTrainer`` and the
-elastic re-shard need the training path, which the port does not carry
-yet."""
+"""Resilience (port of ``repro.runtime``): the retry and straggler
+policy (``straggler``), the seeded chaos harness (``chaos``), the
+fault-tolerant trainer with its injected failure (``fault``) and the
+elastic restore onto a mesh of another size (``elastic``)."""

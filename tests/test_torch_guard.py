@@ -48,7 +48,13 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.distributed.embedding,"
             " repro_torch.distributed.context, repro_torch.models.moe,"
             " repro_torch.benchmarks.serving_bench,"
-            " repro_torch.benchmarks.run;"
+            " repro_torch.benchmarks.run, repro_torch.optim.optimizers,"
+            " repro_torch.data.pipeline, repro_torch.runtime.fault,"
+            " repro_torch.runtime.elastic, repro_torch.launch.train,"
+            " repro_torch.examples.quickstart,"
+            " repro_torch.examples.serve_early_exit,"
+            " repro_torch.examples.train_retriever,"
+            " repro_torch.examples.lm_fault_tolerant;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -165,6 +171,47 @@ def test_int8_and_mla_caches_need_a_card_or_an_explicit_cpu(no_card, arch,
     cache = make(cfg, 2, 8, device="cpu")
     data = cache.data if make is transformer.init_cache else cache
     assert all(t.device.type == "cpu" for t in data if t is not None)
+
+
+def test_training_entry_points_need_a_card_or_an_explicit_cpu(no_card,
+                                                              tmp_path):
+    """The trainer, the training CLI, the carried training state and the
+    examples run on the card by default: with no card they raise before
+    they build or write anything."""
+    from repro_torch.examples import (lm_fault_tolerant, quickstart,
+                                      serve_early_exit, train_retriever)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.build_trainer("starcoder2-3b", smoke=True,
+                            ckpt_dir=str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--ckpt-dir", str(tmp_path / "c")])
+    cfg = reduced(get_arch("starcoder2-3b")).model
+    params = _numpy_tree(transformer.init_params(cfg, seed=0, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.train_state_from_numpy(cfg, (params, params, 0))
+    for main in (quickstart.main, serve_early_exit.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_retriever.main(ckpt=str(tmp_path / "r"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_fault_tolerant.main(base=str(tmp_path / "f"))
+    assert not (tmp_path / "c").exists() and not (tmp_path / "r").exists()
+
+
+def test_kernel_functions_run_the_plain_versions_on_the_cpu_only():
+    """The autograd Functions take the wrapper's path: the plain version
+    on CPU tensors, and on a device with no kernel they raise (``meta``
+    stands in for another device here)."""
+    from repro_torch.kernels import ops
+    q = torch.zeros((2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.embedding_bag(torch.zeros((4, 2), device="meta"),
+                          torch.zeros((3, 2), dtype=torch.int32,
+                                      device="meta"))
 
 
 def test_mesh_launch_needs_a_card_or_an_explicit_cpu(no_card):
