@@ -91,7 +91,24 @@ a line of its own:
    256, k=100) against a full sort; the retriever example's life cycle
    (``--big``: ~103M parameters, 300 steps, 40k docs embedded, the
    index built, N chosen, fixed and patience searched on the fused
-   kernel), fused == the per-probe kernel pair bit for bit;
+   kernel), fused == the per-probe kernel pair bit for bit; then MLA
+   and MoE training on the same 2 x 4,096 tokens (phases
+   ``minicpm3_train_*``, ``deepseek_moe_train_*``): MiniCPM3-4B at 44 of
+   its 62 layers (flash at qk 96, v 64 under autograd, 2 launches a
+   layer a step) and DeepSeekMoE-16B at 4 of 28 (1 dense + 3 MoE layers)
+   at its published capacity factor 1.25 (the dropped share and the aux
+   loss printed; its hold at the drop-free factor, near-tie tokens
+   routed otherwise masked), both in the configs' f32 weights;
+5c. the GAT (``configs/gat_cora``) at ``GNN_SHAPES`` (phases
+   ``gnn_*``): Cora's sizes (the first step against the CPU port's, one
+   step run twice bit for bit, the example's 100 AdamW steps), one
+   forward at ogbn-products' full scale (2,449,029 nodes, 61,859,140
+   edges) and training steps there or at a cut that fits, Reddit's
+   sizes (114,615,892 edges, the CSR on the host) through the fanout
+   sampler, and 128 disjoint molecule graphs; then the port's dry run
+   (phase ``dryrun``): six cells of ``launch.dryrun`` on the single-pod
+   mesh, one process each, every record ``ok``, and the GAT forward
+   counted by ``launch.cost_analysis`` beside its measured ms and peak;
 6. each kernel's time (CUDA events) beside its plain version, a library
    yardstick the port never calls, and its bound; ``topk_merge`` at
    probe 1, at a late probe and at the live pair's width (list rows and
@@ -102,8 +119,8 @@ a line of its own:
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
    and D=1, its bound on 32-byte sectors) are held against their plain
    versions there too, as are the training rows of 5b (flash at 2 x
-   4,096, the bag at the training batch); a profiled static and live
-   serve;
+   4,096, at qk 96 / v 64 there too, the bag at the training batch); a
+   profiled static and live serve;
 6b. deadline-budgeted serving on the main path's index and queries
    (``WaveScheduler(deadline_ms=)``, one fused launch a wave): under a
    simulated clock of 1 ms a wave, budgets of 4, 8, 16 and 32 ms and
@@ -286,6 +303,19 @@ PREFILL_TOL, DECODE_TOL = 0.15, 0.25
 # the decode steps' tokens may differ (read: no prefill token; 51 and 2
 # of the 64 decode tokens of DeepSeekMoE and DBRX, whose M=4 products
 # round otherwise than the forward's M=8,256)
+#
+# The MoE training hold (lm_train) masks the tokens that the kernel and
+# plain paths route otherwise, and holds them to the same ROUTE_TIE, in
+# place of tests/test_torch_train.py's rule against the reference on the
+# CPU (a probability gap under 1e-3, at most 5% of 128 tokens): at
+# DeepSeekMoE's published width (64 experts, top 6) the card's first
+# run of that rule found 778 of 8,192 tokens routed otherwise, the worst
+# probability gap 0.00178; at the drop-free factor 816 (9.96%), 0.00104.
+# A probability gap scales with the router's probabilities, a
+# log-probability gap is the relative noise that the kernel's bf16
+# rounding of P makes (read: worst 0.0299); the share is capped by what
+# the paths' own router noise can swap (route_flips; read: 0.0996 under
+# a cap of 0.366).
 ROUTE_TIE = 0.05
 PREFILL_SWAP_SHARE, DECODE_SWAP_SHARE = 0.001, 0.9
 # f32 flash_attention against its plain version, (atol, rtol): f32 sums
@@ -888,10 +918,11 @@ def sdpa_backend(q, k, v):
         return f"unknown ({type(e).__name__})"
 
 
-def mla_flash_row(ctx, cfg, launches):
+def mla_flash_row(ctx, cfg, launches, *, batch=None, s=None,
+                  name="flash_attention (qk 96, v 64)", seed=6):
     """flash_attention at MiniCPM3's prefill shapes (BH = prompts x 40
-    heads, S 2,048, qk 96, v 64, bf16, causal): held against its plain
-    version, then timed beside it and beside
+    heads, S 2,048, qk 96, v 64, bf16, causal), or at ``batch`` x ``s``:
+    held against its plain version, then timed beside it and beside
     ``scaled_dot_product_attention`` (the backend it picked named); its
     bound is the larger of BH S (S+1) (dqk + dv) operations at the bf16
     peak and the bytes of q, k, v and o at the memory rate."""
@@ -899,10 +930,11 @@ def mla_flash_row(ctx, cfg, launches):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k_fa
 
-    m = cfg.mla
-    dqk, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
-    bh, s = LM_PROMPTS * cfg.n_heads, LM_PROMPT_LEN
-    g = torch.Generator(device=ctx.dev).manual_seed(6)
+    dqk, dv = qk_v_dims(cfg)
+    batch = batch or LM_PROMPTS
+    s = s or LM_PROMPT_LEN
+    bh = batch * cfg.n_heads
+    g = torch.Generator(device=ctx.dev).manual_seed(seed)
     q, k = (torch.randn((bh, s, dqk), generator=g, device=ctx.dev)
             .to(torch.bfloat16) for _ in range(2))
     v = torch.randn((bh, s, dv), generator=g, device=ctx.dev) \
@@ -914,22 +946,22 @@ def mla_flash_row(ctx, cfg, launches):
     ctx.sync()
     err, ratio = check_flash(got, q, k, v, True)
     del got
-    shp = (LM_PROMPTS, cfg.n_heads, s)
+    shp = (batch, cfg.n_heads, s)
     qs, ks_, vs = q.view(*shp, dqk), k.view(*shp, dqk), v.view(*shp, dv)
     backend = sdpa_backend(qs, ks_, vs)
-    print(f"flash_attention at MiniCPM3's prefill (BH={bh}, S={s}, qk {dqk}, "
-          f"v {dv}, bf16, causal): {flops:.6e} FLOP, {n_bytes} bytes, bound "
-          f"{bnd[0]:.6f} ms ({bnd[1]}); max_abs_err {err}, max |got - want| "
-          f"/ bound {ratio}; scaled_dot_product_attention runs {backend}")
+    print(f"{name} (BH={bh}, S={s}, qk {dqk}, v {dv}, bf16, causal): "
+          f"{flops:.6e} FLOP, {n_bytes} bytes, bound {bnd[0]:.6f} ms "
+          f"({bnd[1]}); max_abs_err {err}, max |got - want| / bound "
+          f"{ratio}; scaled_dot_product_attention runs {backend}")
     return dict(
-        name="flash_attention (qk 96, v 64)", counter="flash_attention",
+        name=name, counter="flash_attention",
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:65",
         launches=launches, max_abs_err=err,
-        ms=ctx.time_call("flash_attention (qk 96, v 64)",
+        ms=ctx.time_call(name,
                          lambda: k_fa.flash_attention(q, k, v, causal=True),
                          10, profiled=True),
-        plain_ms=ctx.time_call("flash_attention (qk 96, v 64) plain",
+        plain_ms=ctx.time_call(f"{name} plain",
                                lambda: k_fa.flash_attention_plain(
                                    q, k, v, causal=True), 5),
         bound=bnd,
@@ -1076,6 +1108,12 @@ RETRIEVER_STEPS = 300
 # port against the reference (bf16 activations on both sides; read on
 # the CPU: loss within 2.1e-4, leaves within 0.037 of their scale)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 0.06
+# MLA and MoE training at published widths, depth cut to what one card
+# holds beside the earlier phases (16 B of f32 weights, gradients and
+# AdamW moments a parameter): MiniCPM3-4B's 62 layers to 44 (2.93B
+# parameters, ~47 GB of state; 40 layers peaked at 65.8 GB beside a 17 GB
+# ballast), DeepSeekMoE-16B's 28 to 4 (1 dense + 3 MoE, 2.27B, ~36 GB)
+MLA_TRAIN_LAYERS, MOE_TRAIN_LAYERS = 44, 4
 
 
 def named_leaves(tree, prefix=""):
@@ -1117,13 +1155,15 @@ def attention_backward_row(ctx, cfg, batch, seq, step_ms):
     import torch
     from repro_torch.kernels import flash_attention as k_fa
 
-    bh, dqk = batch * cfg.n_heads, cfg.head_dim()
-    dv = dqk
+    bh = batch * cfg.n_heads
+    dqk, dv = qk_v_dims(cfg)
     g = torch.Generator(device=ctx.dev).manual_seed(8)
-    q, k, v, do = (torch.randn((bh, seq, dqk), generator=g, device=ctx.dev)
-                   .to(torch.bfloat16) for _ in range(4))
+    q, k = (torch.randn((bh, seq, dqk), generator=g, device=ctx.dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn((bh, seq, dv), generator=g, device=ctx.dev)
+             .to(torch.bfloat16) for _ in range(2))
     flops = bh * seq * (seq + 1) * (3 * dqk + 2 * dv)
-    n_bytes = (4 * bh * seq * dqk + 3 * bh * seq * dv) * 2
+    n_bytes = (4 * bh * seq * dqk + 3 * bh * seq * dv) * 2  # q k dq dk; v do dv
     bnd = bound(n_bytes, flops, BF16_FLOPS_PER_S)
     ms = ctx.time_call("flash_attention_backward_plain (one layer)",
                        lambda: k_fa.flash_attention_backward_plain(
@@ -1133,21 +1173,105 @@ def attention_backward_row(ctx, cfg, batch, seq, step_ms):
                bound_ms=bnd[0], bound_by=bnd[1], flops=flops,
                bytes=n_bytes, ms_per_step=ms * cfg.n_layers,
                share_of_step=ms * cfg.n_layers / step_ms)
-    print(json.dumps({"plain_attention_backward": out}))
+    print(json.dumps({"plain_attention_backward": dict(out, model=cfg.name,
+                                                      dv=dv)}))
     return out
 
 
-def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-             steps=TRAIN_STEPS, seed=0):
+def qk_v_dims(cfg):
+    """An LM's attention head dims: (qk, v)."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    return cfg.head_dim(), cfg.head_dim()
+
+
+def route_flips(cfg, params, tokens):
+    """The kernel path's forward against the plain path's, MoE layer by
+    layer: the (B, S) mask of the tokens routed otherwise in some layer,
+    and the readings the hold is judged by (``route_swaps``' measures,
+    the plain path standing for the forward): for each such token's first
+    differing choice, how far the plain path's least expert lies under
+    the kernel path's k-th router log-probability (worst) and the same
+    gap in probability (``tests/test_torch_train.py``'s unit); the
+    router noise between the paths, max |log p_kernel - log p_plain|
+    over the experts at the token-layers routed alike so far (median,
+    99th percentile); the first flips per MoE layer; and the share of
+    tokens that the median noise could route otherwise by the kernel
+    path's own near ties (``swap_share_expected``, as ``lm_serve``
+    reports it): the cap on the share that flips.  The noise is the max
+    over 64 experts, more than the two experts at the top-k boundary
+    move, so the cap stands above the share it explains (read on the
+    card: 0.366 against 0.0996)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention, moe, transformer
+
+    with torch.no_grad():
+        with moe.route_log() as lk:
+            transformer.forward(cfg, params, tokens)
+        with attention.plain_attention(), moe.route_log() as lp:
+            transformer.forward(cfg, params, tokens)
+    b = tokens.shape[0]
+    hit, worst_log, noise = route_swaps(lp.calls, lk.calls, slice(None), b)
+    seen = torch.zeros(hit.numel(), dtype=torch.bool, device=hit.device)
+    worst_p, per_layer = 0.0, []
+    for (p_k, e_k, _), (_, e_p, _) in zip(lk.calls, lp.calls):
+        diff = (e_k.sort(-1).values != e_p.sort(-1).values).any(-1)
+        first = diff & ~seen
+        if first.any():
+            pk = p_k[first]
+            short = pk.gather(-1, e_k[first]).min(-1).values \
+                - pk.gather(-1, e_p[first]).min(-1).values
+            worst_p = max(worst_p, float(short.max()))
+        per_layer.append(int(first.sum()))
+        seen |= diff
+    nz = noise.float()
+    q50, q99 = (float(torch.quantile(nz, q)) for q in (0.5, 0.99))
+    readings = dict(masked_tokens=int(hit.sum()), tokens=hit.numel(),
+                    flip_share=float(hit.float().mean()),
+                    first_flips_per_moe_layer=per_layer,
+                    worst_flip_log_gap=worst_log,
+                    worst_flip_prob_gap=worst_p,
+                    router_noise_median=q50, router_noise_p99=q99,
+                    flip_share_cap=swap_share_expected(lk.calls, q50))
+    return hit.cpu().numpy(), readings
+
+
+def moe_parts(cfg, params, batch):
+    """A training batch's MoE aux loss and its dropped share of the
+    token-expert assignments (the config's own capacity factor)."""
+    import torch
+    from repro_torch.models import moe, transformer
+
+    with torch.no_grad(), moe.route_log() as log:
+        _, parts = transformer.loss_fn(cfg, params, batch)
+    return dict(aux=float(parts["aux"]), ce=float(parts["ce"]),
+                dropped=log.dropped(), assigned=log.assigned(),
+                dropped_share=log.dropped() / max(log.assigned(), 1),
+                capacity_factor=cfg.moe.capacity_factor)
+
+
+def lm_train(ctx, cfg, *, name="lm_train", batch=TRAIN_BATCH,
+             seq=TRAIN_SEQ, steps=TRAIN_STEPS, seed=0, timing_row=True):
     """An LM's training on seeded random f32 weights: the first step's
     loss and gradients through the flash kernel's Function held against
     the same step through the plain ``_causal_chunk_attn`` under autograd
     (phase ``lm_train_hold``), then ``steps`` steps of the trainer's
     AdamW on ``lm_batcher``'s batches (``lm_train_steps``: 2 flash
-    launches a layer a step, the forward and the remat recompute), one
+    launches a layer a step, the forward and the remat recompute; one in
+    an MoE config's leading dense layers, which run without remat), one
     profiled step, the plain attention backward's share of a step and the
-    kernel's timing row at the step's shapes.  Returns (summary, that
-    row)."""
+    kernel's timing row at the step's shapes.  An MoE config trains at
+    its own capacity factor (the dropped share and the aux loss
+    printed); its hold runs at the drop-free factor E/k, as
+    ``lm_serve``'s consistency harness does, since at 1.25 a token routed
+    otherwise moves which later tokens an expert drops: a token that the
+    two paths route otherwise must be a near tie (``ROUTE_TIE``, in
+    log-probability), no larger a share of them than the paths' router
+    noise can swap (``route_flips``), and its label is masked (-1) on
+    both sides.  Phases are named after ``name``.  Returns (summary, that
+    row, or None without ``timing_row``)."""
     import functools
 
     import numpy as np
@@ -1159,11 +1283,36 @@ def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     batcher = lm_batcher(cfg.vocab_size, batch, seq, seed)
     b0 = batcher.batch(0)
     summary = dict(model=cfg.name, n_layers=cfg.n_layers, batch=batch,
-                   seq=seq)
-    with ctx.phase("lm_train_hold"):
+                   seq=seq, params=cfg.param_count())
+    # a forward launch a layer, and one in each rematerialised layer's
+    # recompute (the reference checkpoints the scanned layers, not an MoE
+    # config's leading dense ones)
+    per_step = 2 * cfg.n_layers - (cfg.moe.first_k_dense if cfg.moe else 0)
+    with ctx.phase(f"{name}_hold"):
         ctx.reset_peak()
         params = transformer.init_params(cfg, seed, device=ctx.dev)
-        loss_of = functools.partial(transformer.loss_fn, cfg, batch=b0)
+        hold_cfg = drop_free(cfg) if cfg.moe else cfg
+        if cfg.moe:
+            summary["moe"] = moe_parts(cfg, params, b0)
+            flips, rd = route_flips(hold_cfg, params, b0["tokens"])
+            b0 = dict(b0, labels=np.where(flips, -1, b0["labels"])
+                      .astype(b0["labels"].dtype))
+            summary.update(rd)
+            print(f"{cfg.name} at capacity factor "
+                  f"{cfg.moe.capacity_factor}: {json.dumps(summary['moe'])}; "
+                  f"the hold at the drop-free factor "
+                  f"{hold_cfg.moe.capacity_factor}, tokens routed otherwise "
+                  f"by the kernel and plain paths (labels masked): "
+                  f"{json.dumps(rd)} (bounds: worst_flip_log_gap < "
+                  f"{ROUTE_TIE}, flip_share <= flip_share_cap)")
+            if rd["worst_flip_log_gap"] >= ROUTE_TIE:
+                raise AssertionError(f"a token routed otherwise is no near "
+                                     f"tie: {rd}")
+            if rd["flip_share"] > rd["flip_share_cap"]:
+                raise AssertionError(f"more tokens routed otherwise than "
+                                     f"the paths' router noise explains: "
+                                     f"{rd}")
+        loss_of = functools.partial(transformer.loss_fn, hold_cfg, batch=b0)
         ctx.reset()
         ctx.sync()
         t0 = time.perf_counter()
@@ -1172,10 +1321,10 @@ def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         grad_ms = (time.perf_counter() - t0) * 1000
         counts = ctx.read(f"{cfg.name} loss and gradients ({batch} x {seq})",
                           ["flash_attention"], absent=["embedding_bag"])
-        if counts["flash_attention"] != 2 * cfg.n_layers:
+        if counts["flash_attention"] != per_step:
             raise AssertionError(f"a gradient step launched flash_attention "
                                  f"{counts['flash_attention']} times, not "
-                                 f"{2 * cfg.n_layers}")
+                                 f"{per_step}")
         ctx.reset()
         with attention.plain_attention():
             loss_p, g_p = train.value_and_grad(loss_of, params)
@@ -1190,14 +1339,14 @@ def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     peak_device_mem_bytes=ctx.peak(),
                     bounds=dict(loss_rtol=TRAIN_LOSS_RTOL,
                                 grad_rtol=TRAIN_GRAD_RTOL))
-        print(json.dumps({"lm_train_hold": hold}))
+        print(json.dumps({f"{name}_hold": hold}))
         if not np.isfinite(float(loss_k)) or rel > TRAIN_LOSS_RTOL or \
                 worst > TRAIN_GRAD_RTOL:
             raise AssertionError(f"the kernel path's first step is off the "
                                  f"plain path's: {hold}")
         summary.update(hold=hold)
         del g_k, g_p
-    with ctx.phase("lm_train_steps"):
+    with ctx.phase(f"{name}_steps"):
         ctx.reset_peak()
         opt = train.trainer_optimizer()
         step_fn = train.make_lm_step(cfg, opt)
@@ -1206,7 +1355,7 @@ def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         del params
         ms, losses, launches = [], [], []
         for i in range(steps):
-            b = batcher.batch(i)
+            b = b0 if i == 0 else batcher.batch(i)
             ctx.reset()
             ctx.sync()
             t0 = time.perf_counter()
@@ -1221,23 +1370,34 @@ def lm_train(ctx, cfg, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                        tokens_per_s=batch * seq / (med / 1000),
                        flash_launches_per_step=launches,
                        peak_device_mem_bytes=ctx.peak())
-        print(json.dumps({"lm_train": summary}))
+        print(json.dumps({name: summary}))
         if not all(np.isfinite(losses)) or set(launches) != {
-                2 * cfg.n_layers} or int(state[2]) != steps:
+                per_step} or int(state[2]) != steps:
             raise AssertionError(f"training went wrong: {summary}")
-        if float(loss_k) != losses[0]:
+        if hold_cfg is cfg and float(loss_k) != losses[0]:
             raise AssertionError("the trainer's first loss is not the held "
                                  "step's")
-    with ctx.phase("lm_train_profile"):
+    with ctx.phase(f"{name}_profile"):
         b = batcher.batch(steps)
         ctx.profile(f"{cfg.name} training step ({batch} x {seq})",
                     lambda: step_fn(state, b))
+        if cfg.moe:
+            summary["moe_last"] = moe_parts(cfg, state[0], b)
+            print(f"{cfg.name} after {steps + 1} steps: "
+                  f"{json.dumps(summary['moe_last'])}")
         del state
         summary["plain_attention_backward"] = attention_backward_row(
             ctx, cfg, batch, seq, med)
-        row = flash_row(ctx, f"flash_attention (training, {batch} x {seq})",
-                        batch, cfg.n_heads, seq, cfg.head_dim(), 9,
-                        launches=2 * cfg.n_layers)
+        if not timing_row:
+            row = None
+        elif cfg.attn_type == "mla":
+            row = mla_flash_row(ctx, cfg, per_step, batch=batch,
+                                s=seq, name="flash_attention (qk 96, v 64, "
+                                f"training, {batch} x {seq})", seed=10)
+        else:
+            row = flash_row(ctx, f"flash_attention (training, {batch} x "
+                            f"{seq})", batch, cfg.n_heads, seq,
+                            cfg.head_dim(), 9, launches=per_step)
     return summary, row
 
 
@@ -1365,7 +1525,7 @@ def recsys_train(ctx, cfg, *, batch=RS_TRAIN_BATCH, steps=RS_TRAIN_STEPS,
                  torch.zeros((), dtype=torch.int32, device=ctx.dev))
         ms, losses = [], []
         for i in range(steps):
-            b = batcher.batch(i)
+            b = b0 if i == 0 else batcher.batch(i)
             ctx.reset()
             ctx.sync()
             t0 = time.perf_counter()
@@ -3069,6 +3229,410 @@ def kernel_bench_phase(ctx):
               f"{json.dumps(d['sort'])}")
 
 
+# ---------------------------------------------------------------------------
+# the GNN (gat-cora at GNN_SHAPES) and the dry run
+# ---------------------------------------------------------------------------
+
+GNN_ARCH = "gat-cora"
+GNN_FULL_STEPS, GNN_LR = 100, 0.02   # examples/gnn_and_recsys.py's GAT run
+GNN_STEPS = 3                        # timed steps of the larger cells
+# the card's first full_graph_sm step against the CPU port's same step
+# in f64 (its exact value at these weights): the loss within 1e-5 and
+# each gradient leaf within 1e-5 of its max |.| (tests/test_torch_gnn.py's
+# tolerances against the reference).  Not against the CPU port's f32
+# step: on the card-drawn weights its layer-0 a_dst gradient is 7.4e-3
+# of the leaf's max off the f64 value, where the card's f32 step is
+# within 1e-6.  One (edge, head) of layer 0's attention logits lies at
+# -4.4e-8 before the leaky ReLU in f64; torch's f32 product on the CPU
+# puts it at +4.5e-8, across the kink, where the gradient's slope jumps
+# from 0.2 to 1 (the reference's f32 step on the CPU stays on the f64
+# side, within 1.9e-6: tests/gat_f32_diagnostic.py).  That difference is
+# printed, not gated
+GNN_ATOL, GNN_GRAD_REL = 1e-5, 1e-5
+# ogbn-products' training steps run on a random_graph of 1/GNN_TRAIN_CUT
+# of its nodes and edges (the published 25.26 edges a node and d_feat
+# kept): a full-scale step runs the card out of memory (its forward alone,
+# without autograd, peaks at 63.9 GB; a step at 1/2 at 68.5 GB)
+GNN_TRAIN_CUT = 2
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
+                ("gat-cora", "ogb_products"), ("deepfm", "train_batch"),
+                ("msmarco-ivf", "ivf_serve_1k"), ("msmarco-ivf", "ivf_build"))
+DRYRUN_TIMEOUT = 900
+
+
+def gat_pass_bytes(cfg, n_edges):
+    """The bytes of one f32 pass over each per-edge tensor of each GAT
+    layer, (E, H, D) and (E, H), and of one layer's forward by the pass
+    count of ``models/gnn.py``'s attention layer: 4 (E, H, D) passes (the
+    source gather's write, the message's two reads and write, its
+    segment sum's read) and 22 (E, H) passes (gathers, the leaky ReLU,
+    the segment max and sum, the softmax's elementwise steps)."""
+    out = []
+    for i in range(cfg.n_layers):
+        d = cfg.n_classes if i == cfg.n_layers - 1 else cfg.d_hidden
+        ehd, eh = n_edges * cfg.n_heads * d * 4, n_edges * cfg.n_heads * 4
+        out.append(dict(layer=i, ehd_pass_bytes=ehd, eh_pass_bytes=eh,
+                        forward_bytes=4 * ehd + 22 * eh))
+    return out
+
+
+def gnn_phases(ctx):
+    """The GAT (``configs/gat_cora``: 2 layers, 8 heads x 8) at the shapes
+    of ``GNN_SHAPES``, plain PyTorch on the card (the reference's GAT is
+    ``segment_*`` ops that XLA lowers itself: no Pallas kernel, so no
+    launch counter moves).  ``gnn_full_graph_sm`` (Cora's sizes): the
+    first step's loss and gradients against the same step on the CPU
+    port, one AdamW step run twice from one state bit for bit, then the
+    example's 100 steps; ``gnn_ogb_products``: one forward at full scale
+    (ms, peak memory, each per-edge pass's bytes bound), then
+    ``GNN_STEPS`` training steps on a ``random_graph`` cut to
+    1/``GNN_TRAIN_CUT`` (a full-scale step does not fit);
+    ``gnn_minibatch_lg`` (Reddit's sizes): the CSR built on the host,
+    ``GNN_STEPS`` steps of ``loss_blocks`` + AdamW on ``sample_blocks`` ->
+    ``pad_block`` batches of 1,024 seeds at fanouts 15/10, the sampler's
+    host ms beside the device step's; ``gnn_molecule``: 128 disjoint
+    graphs of 30 nodes and 64 edges, ``GNN_STEPS`` steps.  Returns the
+    summary (the ogb_products forward's figures for ``dryrun_phase``)."""
+    import functools
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph_sampler import (CSRGraph, block_shapes,
+                                                pad_block, sample_blocks)
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.launch import train
+    from repro_torch.models import gnn
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.optimizers import adamw
+
+    spec = get_arch(GNN_ARCH)
+    dims = {s.name: s.dims for s in spec.shapes}
+    out = {}
+
+    def cfg_of(shape):
+        return dataclasses.replace(spec.model, d_in=dims[shape]["d_feat"])
+
+    def graph_on(g_np, dev):
+        return gnn.Graph(*(torch.from_numpy(g_np[k]).to(dev) for k in
+                           ("feat", "edge_src", "edge_dst", "label")))
+
+    def run_steps(loss, params, steps, lr=GNN_LR):
+        """``steps`` AdamW steps of ``loss(params)``: the losses and the
+        device ms of each step."""
+        opt = adamw(lr, weight_decay=0.0)
+        state = opt.init(params)
+        losses, ms = [], []
+        for i in range(steps):
+            ctx.sync()
+            t0 = time.perf_counter()
+            lv, grads = train.value_and_grad(loss, params)
+            opt.update(grads, state, params, i)
+            del grads
+            ctx.sync()
+            ms.append((time.perf_counter() - t0) * 1000)
+            losses.append(float(lv))
+        return losses, ms, state
+
+    with ctx.phase("gnn_full_graph_sm"):
+        cfg = cfg_of("full_graph_sm")
+        d = dims["full_graph_sm"]
+        g_np = random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                            cfg.n_classes, seed=0)
+        graph = graph_on(g_np, ctx.dev)
+        params = gnn.init_params(cfg, seed=0, device=ctx.dev)
+        ctx.reset()
+        loss_d, g_d = train.value_and_grad(
+            functools.partial(gnn.loss_fn, cfg, g=graph), params)
+        ctx.sync()
+        ctx.read("gat full_graph_sm loss and gradients", [],
+                 absent=ctx.counter_names)
+
+        def cpu_step(dtype):
+            g = graph_on(g_np, "cpu")
+            g = g._replace(feat=g.feat.to(dtype))
+            return train.value_and_grad(
+                functools.partial(gnn.loss_fn, cfg, g=g),
+                tree_map(lambda t: t.detach().cpu().to(dtype), params))
+
+        def worst_leaf(got, want):
+            worst = (0.0, "")
+            for (name, a), (_, b) in zip(named_leaves(got),
+                                         named_leaves(want)):
+                a, b = a.detach().double().cpu(), b.double()
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                worst = max(worst, (err / scale if scale else err, name))
+            return worst
+
+        loss_64, g_64 = cpu_step(torch.float64)
+        loss_32, g_32 = cpu_step(torch.float32)
+        worst = worst_leaf(g_d, g_64)
+        worst_32 = worst_leaf(g_32, g_64)
+        hold = dict(loss_card=float(loss_d), loss_cpu_f64=float(loss_64),
+                    loss_cpu_f32=float(loss_32),
+                    loss_abs_err=abs(float(loss_d) - float(loss_64)),
+                    worst_grad_rel_err=worst[0], worst_grad_leaf=worst[1],
+                    cpu_f32_worst_grad_rel_err=worst_32[0],
+                    cpu_f32_worst_grad_leaf=worst_32[1],
+                    card_vs_cpu_f32_worst=worst_leaf(g_d, g_32),
+                    bounds=dict(loss_atol=GNN_ATOL, grad_rel=GNN_GRAD_REL))
+        print(json.dumps({"gnn_full_graph_sm_vs_cpu": hold}))
+        if hold["loss_abs_err"] > GNN_ATOL or worst[0] > GNN_GRAD_REL:
+            raise AssertionError(f"the card's GAT step is off the CPU "
+                                 f"port's: {hold}")
+
+        def one_step():
+            p = tree_map(torch.clone, params)
+            _, _, st = run_steps(functools.partial(gnn.loss_fn, cfg,
+                                                   g=graph), p, 1)
+            return p, st
+
+        if not same_bits(one_step(), one_step()):
+            raise AssertionError("one GAT step from one state gave other "
+                                 "bits on a second run")
+        print("one GAT AdamW step run twice from one state: the same bits")
+        losses, ms, _ = run_steps(functools.partial(gnn.loss_fn, cfg,
+                                                    g=graph),
+                                  params, GNN_FULL_STEPS)
+        _, m = gnn.loss_fn(cfg, params, graph)
+        out["full_graph_sm"] = dict(
+            nodes=d["n_nodes"], edges=d["n_edges"], d_feat=d["d_feat"],
+            first_loss=losses[0], last_loss=losses[-1], acc=float(m["acc"]),
+            step_ms_median=float(np.median(ms[1:])), steps=len(ms), hold=hold)
+        print(json.dumps({"gnn_full_graph_sm": out["full_graph_sm"]}))
+        if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+            raise AssertionError(f"the GAT did not learn: {losses[::10]}")
+        del graph, params, g_d, g_64, g_32
+
+    with ctx.phase("gnn_ogb_products"):
+        cfg = cfg_of("ogb_products")
+        d = dims["ogb_products"]
+        t0 = time.perf_counter()
+        g_np = random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                            cfg.n_classes, seed=1)
+        host_s = time.perf_counter() - t0
+        graph = graph_on(g_np, ctx.dev)
+        del g_np
+        params = gnn.init_params(cfg, seed=0, device=ctx.dev)
+        with torch.no_grad():
+            gnn.forward(cfg, params, graph)     # the graph's sort, once
+            ctx.sync()
+            ctx.reset_peak()
+            base = torch.cuda.memory_allocated(ctx.dev)
+            t0 = time.perf_counter()
+            logits = gnn.forward(cfg, params, graph)
+            ctx.sync()
+            fwd_ms = (time.perf_counter() - t0) * 1000
+        passes = gat_pass_bytes(cfg, d["n_edges"])
+        fwd_bytes = sum(p["forward_bytes"] for p in passes)
+        fwd = dict(nodes=d["n_nodes"], edges=d["n_edges"],
+                   d_feat=d["d_feat"], graph_host_s=host_s,
+                   forward_ms=fwd_ms, peak_bytes=ctx.peak(),
+                   peak_above_inputs_bytes=ctx.peak() - base,
+                   passes=passes, forward_pass_bytes=fwd_bytes,
+                   forward_bytes_bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                   finite=bool(torch.isfinite(logits).all()))
+        fwd["bytes_bound_share"] = fwd["forward_bytes_bound_ms"] / fwd_ms
+        print(json.dumps({"gnn_ogb_products_forward": fwd}))
+        if not fwd["finite"] or logits.shape != (d["n_nodes"],
+                                                 cfg.n_classes):
+            raise AssertionError("the full-scale GAT forward is not finite "
+                                 "or of the wrong shape")
+        del logits
+        out["ogb_products_forward"] = fwd
+
+        # the full graph makes way for the cut one
+        del graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        n, e = d["n_nodes"] // GNN_TRAIN_CUT, d["n_edges"] // GNN_TRAIN_CUT
+        g = graph_on(random_graph(n, e, d["d_feat"], cfg.n_classes, seed=1),
+                     ctx.dev)
+        ctx.reset_peak()
+        losses, ms, _ = run_steps(functools.partial(gnn.loss_fn, cfg, g=g),
+                                  params, GNN_STEPS + 1)
+        tr = dict(cut=GNN_TRAIN_CUT, nodes=n, edges=e, losses=losses,
+                  step_ms=ms, step_ms_median=float(np.median(ms[1:])),
+                  peak_bytes=ctx.peak(),
+                  forward_bytes_bound_ms=sum(
+                      q["forward_bytes"] for q in gat_pass_bytes(cfg, e))
+                  / HBM_BYTES_PER_S * 1e3)
+        out["ogb_products_train"] = tr
+        print(json.dumps({"gnn_ogb_products_train": tr}))
+        if not np.isfinite(tr["losses"]).all():
+            raise AssertionError("the GAT's ogbn-products losses are not "
+                                 "finite")
+        del g, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with ctx.phase("gnn_minibatch_lg"):
+        cfg = cfg_of("minibatch_lg")
+        d = dims["minibatch_lg"]
+        t0 = time.perf_counter()
+        g_np = random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                            cfg.n_classes, seed=2)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        csr = CSRGraph.from_edges(g_np["edge_src"], g_np["edge_dst"],
+                                  d["n_nodes"])
+        csr_s = time.perf_counter() - t0
+        feats = torch.from_numpy(g_np["feat"]).to(ctx.dev)
+        labels = torch.from_numpy(g_np["label"]).to(ctx.dev)
+        del g_np
+        fanouts = (d["fanout0"], d["fanout1"])
+        bn = d["batch_nodes"]
+        shapes = block_shapes(bn, fanouts)
+        n_outs = tuple(o for (_, _, o) in shapes)
+        params = gnn.init_params(cfg, seed=0, device=ctx.dev)
+        opt = adamw(GNN_LR, weight_decay=0.0)
+        state = opt.init(params)
+        rng = np.random.default_rng(0)
+        host_ms, dev_ms, losses = [], [], []
+        ctx.reset_peak()
+        for i in range(GNN_STEPS + 1):
+            t0 = time.perf_counter()
+            seeds = rng.choice(d["n_nodes"], bn, replace=False)
+            blocks = sample_blocks(csr, seeds, fanouts, rng)
+            padded = [pad_block(b, e, n) for b, (e, n, _) in
+                      zip(blocks, shapes)]
+            host_ms.append((time.perf_counter() - t0) * 1000)
+            ctx.sync()
+            t0 = time.perf_counter()
+            bl = [{k: torch.from_numpy(getattr(b, k)).to(ctx.dev)
+                   for k in ("edge_src", "edge_dst", "edge_mask")}
+                  for b in padded]
+            nodes = torch.from_numpy(padded[-1].nodes).to(ctx.dev).long()
+            lab = labels[torch.from_numpy(seeds).to(ctx.dev).long()]
+            lv, grads = train.value_and_grad(
+                lambda p: gnn.loss_blocks(cfg, p, feats[nodes], bl, lab,
+                                          n_outs), params)
+            opt.update(grads, state, params, i)
+            ctx.sync()
+            dev_ms.append((time.perf_counter() - t0) * 1000)
+            losses.append(float(lv))
+        mb = dict(nodes=d["n_nodes"], edges=d["n_edges"], batch_nodes=bn,
+                  fanouts=fanouts, block_shapes=shapes, graph_host_s=gen_s,
+                  csr_host_s=csr_s, sampler_host_ms=host_ms,
+                  device_step_ms=dev_ms,
+                  sampler_ms_median=float(np.median(host_ms[1:])),
+                  device_ms_median=float(np.median(dev_ms[1:])),
+                  losses=losses, peak_bytes=ctx.peak())
+        mb["host_share"] = mb["sampler_ms_median"] / (
+            mb["sampler_ms_median"] + mb["device_ms_median"])
+        out["minibatch_lg"] = mb
+        print(json.dumps({"gnn_minibatch_lg": mb}))
+        if not np.isfinite(losses).all():
+            raise AssertionError("the sampled GAT's losses are not finite")
+        del csr, feats, labels, params, state
+
+    with ctx.phase("gnn_molecule"):
+        cfg = cfg_of("molecule")
+        d = dims["molecule"]
+        parts = [random_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                              cfg.n_classes, seed=100 + i)
+                 for i in range(d["batch"])]
+        off = np.arange(d["batch"]) * d["n_nodes"]
+        g_np = {"feat": np.concatenate([g["feat"] for g in parts]),
+                "label": np.concatenate([g["label"] for g in parts]),
+                "edge_src": np.concatenate([g["edge_src"] + o for g, o in
+                                            zip(parts, off)]),
+                "edge_dst": np.concatenate([g["edge_dst"] + o for g, o in
+                                            zip(parts, off)])}
+        graph = graph_on(g_np, ctx.dev)
+        params = gnn.init_params(cfg, seed=0, device=ctx.dev)
+        losses, ms, _ = run_steps(functools.partial(gnn.loss_fn, cfg,
+                                                    g=graph),
+                                  params, GNN_STEPS + 1)
+        out["molecule"] = dict(graphs=d["batch"], nodes=len(g_np["label"]),
+                               edges=len(g_np["edge_src"]), losses=losses,
+                               step_ms=ms,
+                               step_ms_median=float(np.median(ms[1:])))
+        print(json.dumps({"gnn_molecule": out["molecule"]}))
+        if not np.isfinite(losses).all():
+            raise AssertionError("the molecule GAT's losses are not finite")
+    return out
+
+
+def dryrun_phase(ctx, gat_forward):
+    """The port's dry run on the card's machine: ``DRYRUN_CELLS`` on the
+    single-pod mesh, one ``python -m repro_torch.launch.dryrun`` process
+    a cell, all started together; each record must read ``status: ok``.
+    Then the GAT forward that ``gnn_ogb_products`` ran at full scale,
+    counted by ``launch.cost_analysis`` on ``meta`` tensors under a fake
+    group of size 1, beside the measured ms and peak memory (printed,
+    not gated)."""
+    import functools
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import cells, cost_analysis, dryrun
+    from repro_torch.models import gnn
+
+    with ctx.phase("dryrun"), tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        procs = []
+        try:
+            for arch, shape in DRYRUN_CELLS:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", "single",
+                     "--out", tmp], env=env, cwd=str(ROOT),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        recs = {}
+        for (arch, shape), log in zip(DRYRUN_CELLS, logs):
+            path = Path(tmp) / f"{arch}__{shape}__single.json"
+            if not path.exists():
+                raise AssertionError(f"dry run {arch}:{shape} wrote no "
+                                     f"record: {log[-2000:]}")
+            rec = json.loads(path.read_text())
+            recs[f"{arch}:{shape}"] = {
+                k: rec.get(k) for k in ("status", "error", "memory", "cost",
+                                        "collectives", "compile_s",
+                                        "model_flops_global", "note")}
+            print(f"dry run {arch}:{shape}: {json.dumps(recs[f'{arch}:{shape}'])}")
+        bad = [c for c, r in recs.items() if r["status"] != "ok"]
+        if bad:
+            raise AssertionError(f"dry-run cells failed: "
+                                 f"{[(c, recs[c]['error']) for c in bad]}")
+
+        cfg = dataclasses.replace(get_arch(GNN_ARCH).model,
+                                  d_in=gat_forward["d_feat"])
+        n, e = gat_forward["nodes"], gat_forward["edges"]
+        with dryrun.fake_group(1), dryrun.quiet_dtensor():
+            params = cells._abstract(functools.partial(gnn.init_params, cfg))
+            graph = gnn.Graph(cells.meta((n, cfg.d_in)),
+                              cells.meta((e,), torch.int32),
+                              cells.meta((e,), torch.int32),
+                              cells.meta((n,), torch.int32))
+            logits, counter = cost_analysis.count(
+                lambda p, g: gnn.forward(cfg, p, g), params, graph)
+            mem = counter.memory([logits])
+        counted = dict(flops=counter.flops, bytes=counter.bytes,
+                       peak_bytes=mem["peak_gb"] * 1e9,
+                       bytes_ms=counter.bytes / HBM_BYTES_PER_S * 1e3)
+        vs = dict(measured_ms=gat_forward["forward_ms"],
+                  measured_peak_bytes=gat_forward["peak_bytes"],
+                  ms_over_counted_bytes_ms=gat_forward["forward_ms"]
+                  / counted["bytes_ms"],
+                  peak_over_counted_peak=gat_forward["peak_bytes"]
+                  / counted["peak_bytes"])
+        print(json.dumps({"dryrun_gat_forward": dict(counted=counted,
+                                                     measured=vs)}))
+    return recs
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
@@ -3664,8 +4228,26 @@ def main() -> None:
     rs_tr, bag_train = recsys_train(ctx, get_arch(RS_ARCH).model)
     torch.cuda.empty_cache()
     retriever = retriever_lifecycle(ctx)
+    torch.cuda.empty_cache()
+    # MLA and MoE training, each at its own depth cut (module constants)
+    mla_tr, flash_mla_train = lm_train(
+        ctx, dataclasses.replace(get_arch("minicpm3-4b").model,
+                                 n_layers=MLA_TRAIN_LAYERS),
+        name="minicpm3_train")
+    torch.cuda.empty_cache()
+    moe_tr, _ = lm_train(
+        ctx, dataclasses.replace(get_arch("deepseek-moe-16b").model,
+                                 n_layers=MOE_TRAIN_LAYERS),
+        name="deepseek_moe_train", timing_row=False)
+    torch.cuda.empty_cache()
     print(json.dumps({"training": dict(lm=lm_tr, recsys=rs_tr,
-                                       retriever=retriever)}))
+                                       retriever=retriever, minicpm3=mla_tr,
+                                       deepseek_moe=moe_tr)}))
+
+    # -- 5c. the GNN at GNN_SHAPES, then the port's dry run ------------------
+    gat = gnn_phases(ctx)
+    torch.cuda.empty_cache()
+    dryrun_phase(ctx, gat["ogb_products_forward"])
 
     # -- 6. timing ------------------------------------------------------------
     rows = []
@@ -3941,7 +4523,7 @@ def main() -> None:
             ctx, get_arch("minicpm3-4b").model,
             zoo["minicpm3"]["flash_attention_launches"]))
         # the training paths' rows, timed in their phases
-        rows += [flash_train, bag_train]
+        rows += [flash_train, bag_train, flash_mla_train]
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:

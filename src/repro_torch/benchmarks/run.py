@@ -11,9 +11,9 @@ distribution and figure sections, but still writes every JSON artifact:
 ``BENCH_kernels_torch.json``, ``BENCH_table2_torch.json`` and
 ``BENCH_serving_torch.json`` under ``artifacts/``.
 
-The reference's roofline section reads XLA dry-run artifacts (HLO); its
-port waits for the port of ``launch/dryrun.py`` and
-``benchmarks/roofline.py`` (ROADMAP Queue 1, item 6).
+Without ``--smoke`` the roofline section reads the port's dry-run
+records (``python -m repro_torch.launch.dryrun --all`` writes them to
+``artifacts/dryrun_torch/``) through ``benchmarks/roofline.py``.
 """
 from __future__ import annotations
 
@@ -68,8 +68,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     if not smoke:
         print("=" * 72)
-        print("## Roofline: not ported (it reads XLA HLO dry-run "
-              "artifacts; ROADMAP Queue 1, item 6)")
+        from repro_torch.benchmarks import roofline
+        if roofline.load_records("single"):
+            print("## Roofline (single-pod dry-run records)")
+            roofline.main("single")
+        else:
+            print("## Roofline: no dry-run records yet (run python -m "
+                  "repro_torch.launch.dryrun --all)")
     print(f"\ntotal bench time: {time.time() - t0:.0f}s")
 
 

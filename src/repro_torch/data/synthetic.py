@@ -10,9 +10,9 @@ queries whose 1-NN sits in the first probed cluster) and *hard*
 "encoder" knob ``spread`` emulates harder encoders (Contriever/TAS-B
 need larger N in the paper).
 
-``token_stream`` and ``click_log`` are the reference's LM and recsys
-generators, copied as they are (same seed, same arrays).  The graph
-generator waits for the GNN models.
+``token_stream``, ``click_log`` and ``random_graph`` are the
+reference's LM, recsys and graph generators, copied as they are (same
+seed, same arrays).
 """
 from __future__ import annotations
 
@@ -130,3 +130,23 @@ def click_log(batch: int, n_dense: int, n_sparse: int, rows_per_field: int,
     if n_dense == 0:
         dense = np.zeros((batch, 0), np.float32)
     return {"dense": dense, "sparse": sparse, "label": y}
+
+
+def random_graph(n_nodes: int, n_edges: int, d_feat: int, n_classes: int,
+                 seed: int = 0, power_law: bool = True
+                 ) -> Dict[str, np.ndarray]:
+    """Random (power-law degree) graph with community-correlated labels."""
+    rng = np.random.default_rng(seed)
+    if power_law:
+        p = 1.0 / np.arange(1, n_nodes + 1) ** 0.8
+        p /= p.sum()
+        src = rng.choice(n_nodes, n_edges, p=p).astype(np.int32)
+    else:
+        src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    comm = rng.integers(0, n_classes, n_nodes)
+    feats = rng.normal(0, 1, (n_nodes, d_feat)).astype(np.float32)
+    feats[:, : n_classes] += 2.0 * np.eye(n_classes, dtype=np.float32)[comm]
+    labels = comm.astype(np.int32)
+    return {"edge_src": src, "edge_dst": dst, "feat": feats,
+            "label": labels}

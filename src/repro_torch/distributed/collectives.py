@@ -47,6 +47,83 @@ def all_reduce(x: torch.Tensor, group,
     return buf.to(x.device)
 
 
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """(S, *shape) ``x`` -> (*shape): the sum over the group's ranks of
+    their ``x[r]``, on rank r."""
+    src = x.contiguous()
+    if _staged(src, group):
+        src = src.cpu()
+    out = src.new_empty(src.shape[1:])
+    dist.reduce_scatter_tensor(out, src.reshape((-1,) + tuple(src.shape[2:])),
+                               group=group)
+    return out.to(x.device)
+
+
+# --- the same collectives under autograd -------------------------------------
+# A mesh program's gradient is that of the sum of its DP ranks' losses:
+# ranks of a DP group hold other tokens, ranks of a model group hold
+# replicas of one computation, each running its own block of it.
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, replicas):
+        ctx.group, ctx.replicas = group, replicas
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicas:
+            return g[dist.get_rank(ctx.group)], None, None
+        return reduce_scatter(g, ctx.group), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def gather_shards(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather`` of each rank's shard of a weight (FSDP); the
+    gradient reduce-scatters: each rank's shard gets the sum of every
+    rank's gradient of it."""
+    return _Gather.apply(x, group, False)
+
+
+def gather_blocks(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather`` of each replica's block of one result; the gradient
+    of a rank's block is its block of the gathered gradient."""
+    return _Gather.apply(x, group, True)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_reduce`` (sum) whose gradient is summed over the group too."""
+    return _Sum.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, where each replica of the group uses its own block
+    of it: the gradient sums the replicas' partial gradients."""
+    return _Copy.apply(x, group)
+
+
 # --- int8 error-feedback gradient compression --------------------------------
 
 

@@ -67,7 +67,12 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a 2-D table: ids (...) -> (..., D), with the
     table's gradient summed row by row in the order of the ids
-    (``kernels.embedding_bag.rows_grad``), the same bits on every run."""
+    (``kernels.embedding_bag.rows_grad``), the same bits on every run.
+    On ``meta`` tensors, which hold no ids to order, it is
+    ``F.embedding``: the same shapes, and a lookup that ``DTensor``
+    shards."""
+    if table.device.type == "meta":
+        return F.embedding(ids.long(), table)
     return _GatherRows.apply(table, ids.long())
 
 
@@ -145,9 +150,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stable CE over the last axis, in f32; with ``mask``, the masked
-    mean (over at least one token)."""
+    mean (over at least one token).  The log-sum-exp is
+    ``jax.nn.logsumexp``'s: the shift by the row max carries no gradient,
+    so the gradient is the softmax of the shifted row even where the sum
+    rounds to the max (``torch.logsumexp``'s backward gives exp(0) = 1
+    to every entry of a row of -1e29 logits)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
+    mx = logits.amax(-1, keepdim=True).detach()
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    lse = (torch.log(torch.exp(logits - mx).sum(-1, keepdim=True))
+           + mx)[..., 0]
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:

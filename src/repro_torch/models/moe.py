@@ -14,7 +14,13 @@ own block of the batch, with the expert weights gathered on use from
 their DP shards.  Where the reference leaves the expert split over the
 ``model`` axis to XLA's partitioner, each model rank here runs the FFNs
 of its E/m experts and one all-gather over the model group restores the
-whole (E, C, d) output buffer.
+whole (E, C, d) output buffer.  Under autograd the gradient is that of
+the sum of the DP ranks' losses (``distributed.collectives``): the
+gather of the expert weights reduce-scatters their gradients back to
+the DP shards, as the transpose of the reference's ``all_gather`` does,
+and a model rank's gradient of the expert weights holds its own
+experts' rows (the reference's partitioner shards the experts over the
+model axis).
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.distributed import context as ctx
-from repro_torch.distributed.collectives import all_gather, all_reduce
+from repro_torch.distributed.collectives import (copy_to, gather_blocks,
+                                                 gather_shards, sum_over)
 from repro_torch.launch.mesh import axis_index
 from repro_torch.models.layers import (dense, dense_init, gather_rows, mlp,
                                        mlp_init, normal)
@@ -157,8 +164,9 @@ def _moe_core(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     if m > 1 and e % m == 0:
         lo = axis_index(model_group) * (e // m)
         local = {name: p[name][lo: lo + e // m] for name in EXPERT_WEIGHTS}
-        out_buf = all_gather(_expert_ffn(buf[lo: lo + e // m], local),
-                             model_group).reshape(e, capacity, d)
+        buf = copy_to(buf, model_group)
+        out_buf = gather_blocks(_expert_ffn(buf[lo: lo + e // m], local),
+                                model_group).reshape(e, capacity, d)
     else:
         out_buf = _expert_ffn(buf, p)
 
@@ -183,28 +191,30 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out, aux_loss).
 
-    With no mesh, or a batch that the DP size does not divide (a B=1
-    decode), this is ``_moe_core``.  Under a mesh, ``x`` is this rank's
-    block of the batch (split over the DP axes), ``wi``, ``wg`` and ``wo``
-    this rank's block of their dim 1 (FSDP over the DP axes, in their
-    flattened order) and the rest of ``p`` whole: each DP rank routes
-    its own tokens, the expert weights are all-gathered in bf16 on use,
-    each model rank runs its experts' FFNs, and the aux loss is the mean
-    of the DP ranks' values.  Every rank must call it."""
+    With no mesh this is ``_moe_core``.  Under a mesh, where the DP
+    ranks split the batch, ``x`` is this rank's block of it, ``wi``,
+    ``wg`` and ``wo`` this rank's block of their dim 1 (FSDP over the DP
+    axes, in their flattened order) and the rest of ``p`` whole: each DP
+    rank routes its own tokens, the expert weights are all-gathered in
+    bf16 on use, each model rank runs its experts' FFNs, and the aux loss
+    is the mean of the DP ranks' values.  Every rank must call it.  Where
+    the DP ranks do not split the batch (a B=1 decode), every rank holds
+    the batch and the expert weights whole, and this is ``_moe_core``:
+    the expert weights' width tells the two apart."""
     mesh = ctx.current_mesh()
     dp = ctx.dp_axes()
     if mesh is None or dp is None:
         return _moe_core(p, x, cfg)
     dp_group = ctx.axis_group_of(dp)
-    if x.shape[0] % dp_group.size():
+    if dp_group.size() > 1 and p["wi"].shape[1] == cfg.d_model:
         return _moe_core(p, x, cfg)
     pl = dict(p)
     for name in EXPERT_WEIGHTS:
         # ZeRO-3 gather-on-use: (S, E, d/S, f) blocks -> (E, d, f)
-        w = all_gather(p[name].to(torch.bfloat16), dp_group)
+        w = gather_shards(p[name].to(torch.bfloat16), dp_group)
         pl[name] = torch.cat(list(w), dim=1)
     model = ctx.model_axis()
     out, aux = _moe_core(pl, x, cfg,
                          model_group=ctx.axis_group_of((model,))
                          if model else None)
-    return out, all_reduce(aux, dp_group) / dp_group.size()
+    return out, sum_over(aux, dp_group) / dp_group.size()

@@ -137,6 +137,10 @@ def plain_bags():
 
 
 def _bag(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    if table.device.type == "meta":
+        # the dry run's storage-less programs: the gathered rows' sum,
+        # the bag's shapes (its kernel and plain version index by value)
+        return gather_rows(table, rows).float().sum(1)
     if _plain:
         return _eb.EmbeddingBagPlainFunction.apply(
             table.contiguous(), rows.to(torch.int32).contiguous())

@@ -31,7 +31,7 @@ layer's recompute.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +155,22 @@ def train_state_from_numpy(cfg: TransformerConfig, state,
     return params_from_numpy(cfg, params, dev), opt, step
 
 
+class Blocks(NamedTuple):
+    """The functions a layer runs: attention over a sequence and for one
+    decode step (GQA or MLA) and the MoE FFN.  ``BLOCKS`` are the
+    models' own; a caller may pass others of the same signatures to
+    ``forward``, ``loss_fn``, ``prefill`` and ``decode_step``."""
+    gqa_forward: Callable
+    mla_forward: Callable
+    gqa_decode: Callable
+    mla_decode: Callable
+    moe_forward: Callable
+
+
+BLOCKS = Blocks(attn.gqa_forward, attn.mla_forward, attn.gqa_decode,
+                attn.mla_decode, moe_lib.moe_forward)
+
+
 def _all_layers(cfg: TransformerConfig,
                 params: Params) -> List[Tuple[Params, bool]]:
     """Every layer in order with its ``dense_ffn`` flag: the leading
@@ -178,29 +194,30 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
-         dense_ffn: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+         dense_ffn: bool, blocks: Blocks
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN on h: (out, aux loss)."""
     if "moe" in lp and not dense_ffn:
-        return moe_lib.moe_forward(lp["moe"], h, cfg)
+        return blocks.moe_forward(lp["moe"], h, cfg)
     return mlp(lp["mlp"], h, cfg.mlp_type), \
         torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-           positions: torch.Tensor, *, dense_ffn: bool):
+           positions: torch.Tensor, *, dense_ffn: bool, blocks: Blocks):
     """One layer: (x, aux loss, kv), kv what the prefill caches: the
     (B,S,KV,hd) roped k and v, or MLA's (B,S,r) ckv and (B,S,rope)
     k_rope (the reference recomputes them; they are the same values)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.attn_type == "mla":
-        a, *kv = attn.mla_forward(lp["attn"], h, cfg, positions,
-                                  return_latent=True)
+        a, *kv = blocks.mla_forward(lp["attn"], h, cfg, positions,
+                                    return_latent=True)
     else:
-        a, *kv = attn.gqa_forward(lp["attn"], h, cfg, positions,
-                                  return_kv=True)
+        a, *kv = blocks.gqa_forward(lp["attn"], h, cfg, positions,
+                                    return_kv=True)
     x = x + a
     h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    f, aux = _ffn(cfg, lp, h, dense_ffn)
+    f, aux = _ffn(cfg, lp, h, dense_ffn, blocks)
     return x + f, aux, kv
 
 
@@ -215,10 +232,11 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _remat_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-                 positions: torch.Tensor, dense_ffn: bool):
+                 positions: torch.Tensor, dense_ffn: bool, blocks: Blocks):
     """One layer under activation checkpointing: (x, aux)."""
     def body(lp, x):
-        x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
+        x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn,
+                           blocks=blocks)
         return x, aux
 
     kw = {}
@@ -229,7 +247,7 @@ def _remat_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
 
 
 def forward_hidden(cfg: TransformerConfig, params: Params, tokens, *,
-                   remat: bool = False
+                   remat: bool = False, blocks: Blocks = BLOCKS
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> (final hidden (B,S,d) post-norm, summed aux loss).
     With ``remat``, each layer runs under activation checkpointing."""
@@ -242,17 +260,18 @@ def forward_hidden(cfg: TransformerConfig, params: Params, tokens, *,
         # the reference checkpoints the scanned layers, not the leading
         # dense ones
         if remat and not dense_ffn:
-            x, aux = _remat_block(cfg, lp, x, positions, dense_ffn)
+            x, aux = _remat_block(cfg, lp, x, positions, dense_ffn, blocks)
         else:
-            x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
+            x, aux, _ = _block(cfg, lp, x, positions, dense_ffn=dense_ffn,
+                               blocks=blocks)
         aux_total = aux_total + aux
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux_total
 
 
-def forward(cfg: TransformerConfig, params: Params, tokens
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: TransformerConfig, params: Params, tokens, *,
+            blocks: Blocks = BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> (logits f32 (B,S,V), total aux loss)."""
-    x, aux = forward_hidden(cfg, params, tokens)
+    x, aux = forward_hidden(cfg, params, tokens, blocks=blocks)
     return _head_logits(cfg, params, x), aux
 
 
@@ -266,14 +285,16 @@ def _head_logits(cfg: TransformerConfig, params: Params,
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict, *,
-            ce_chunk: int = 512) -> Tuple[torch.Tensor, Dict]:
+            ce_chunk: int = 512, blocks: Blocks = BLOCKS
+            ) -> Tuple[torch.Tensor, Dict]:
     """Chunked cross-entropy plus the MoE aux loss: (loss, {"ce",
     "aux"}).  ``batch`` holds (B,S) ``tokens`` and ``labels`` (a label
     under 0 is masked).  The layers run under remat; the head product
     and CE run per (B, ce_chunk) token slab under a checkpoint that
     saves nothing (the reference's ``nothing_saveable``), so the peak
     extra memory is one slab's B * ce_chunk * V logits."""
-    hidden, aux = forward_hidden(cfg, params, batch["tokens"], remat=True)
+    hidden, aux = forward_hidden(cfg, params, batch["tokens"], remat=True,
+                                 blocks=blocks)
     b, s, _ = hidden.shape
     labels = torch.as_tensor(batch["labels"], device=hidden.device).long()
     mask = (labels >= 0).float()
@@ -352,7 +373,7 @@ def _cache_entry(kind: str, kv, max_seq: int) -> Tuple[torch.Tensor, ...]:
 
 
 def prefill(cfg: TransformerConfig, params: Params, tokens,
-            max_seq: Optional[int] = None
+            max_seq: Optional[int] = None, *, blocks: Blocks = BLOCKS
             ) -> Tuple[torch.Tensor, LMCache]:
     """Process the prompt; return last-position logits (B,V) f32 and a
     cache of length ``max_seq`` (default: the prompt length)."""
@@ -364,7 +385,8 @@ def prefill(cfg: TransformerConfig, params: Params, tokens,
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries = []
     for lp, dense_ffn in _all_layers(cfg, params):
-        x, _, kv = _block(cfg, lp, x, positions, dense_ffn=dense_ffn)
+        x, _, kv = _block(cfg, lp, x, positions, dense_ffn=dense_ffn,
+                          blocks=blocks)
         entries.append(_cache_entry(kind, kv, max_seq))
     x = rmsnorm(params["ln_f"], x[:, -1:, :], cfg.norm_eps)
     logits = _head_logits(cfg, params, x)
@@ -373,7 +395,8 @@ def prefill(cfg: TransformerConfig, params: Params, tokens,
 
 
 def decode_step(cfg: TransformerConfig, params: Params, cache: LMCache,
-                token, pos) -> Tuple[torch.Tensor, LMCache]:
+                token, pos, *, blocks: Blocks = BLOCKS
+                ) -> Tuple[torch.Tensor, LMCache]:
     """token (B,1), pos (int) -> (logits (B,V) f32, the cache written in
     place at ``pos``)."""
     pos = int(pos)
@@ -382,12 +405,12 @@ def decode_step(cfg: TransformerConfig, params: Params, cache: LMCache,
         layer = tuple(c[i] for c in cache.data)
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         if cache.kind == "mla":
-            a = attn.mla_decode(lp["attn"], h, cfg, *layer, pos)
+            a = blocks.mla_decode(lp["attn"], h, cfg, *layer, pos)
         else:
             k, v, *scales = layer
-            a = attn.gqa_decode(lp["attn"], h, cfg, k, v, pos, *scales)
+            a = blocks.gqa_decode(lp["attn"], h, cfg, k, v, pos, *scales)
         x = x + a
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h2, dense_ffn)[0]
+        x = x + _ffn(cfg, lp, h2, dense_ffn, blocks)[0]
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return _head_logits(cfg, params, x)[:, 0], cache

@@ -4,8 +4,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.examples import (lm_fault_tolerant, quickstart,
-                                  serve_early_exit, train_retriever)
+from repro_torch.examples import (gnn_and_recsys, lm_fault_tolerant,
+                                  quickstart, serve_early_exit,
+                                  train_retriever)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,3 +50,11 @@ def test_lm_fault_tolerant(tmp_path):
         steps=8, fail_at=(3, 6), base=str(tmp_path), device="cpu")
     assert restarts == 2 and len(ref) == 8
     np.testing.assert_array_equal(ref, chaos)
+
+
+def test_gnn_and_recsys():
+    out = gnn_and_recsys.main(gat_steps=60, recsys_steps=20, device="cpu")
+    loss, acc, shape = out["gat"]
+    assert acc > 0.8 and loss < 0.5          # community features separable
+    assert shape == (32, 5)
+    assert out["dcn"][-1] < out["dcn"][0]

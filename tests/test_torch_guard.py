@@ -54,7 +54,13 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.examples.quickstart,"
             " repro_torch.examples.serve_early_exit,"
             " repro_torch.examples.train_retriever,"
-            " repro_torch.examples.lm_fault_tolerant;"
+            " repro_torch.examples.lm_fault_tolerant,"
+            " repro_torch.models.gnn, repro_torch.data.graph_sampler,"
+            " repro_torch.examples.gnn_and_recsys,"
+            " repro_torch.distributed.sharding,"
+            " repro_torch.launch.cost_analysis, repro_torch.launch.cells,"
+            " repro_torch.launch.dryrun, repro_torch.benchmarks.roofline,"
+            " repro_torch.benchmarks.hillclimb;"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
             "assert not bad, bad")
@@ -178,9 +184,11 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(no_card,
     """The trainer, the training CLI, the carried training state and the
     examples run on the card by default: with no card they raise before
     they build or write anything."""
-    from repro_torch.examples import (lm_fault_tolerant, quickstart,
-                                      serve_early_exit, train_retriever)
+    from repro_torch.examples import (gnn_and_recsys, lm_fault_tolerant,
+                                      quickstart, serve_early_exit,
+                                      train_retriever)
     from repro_torch.launch import train
+    from repro_torch.models import gnn
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.build_trainer("starcoder2-3b", smoke=True,
                             ckpt_dir=str(tmp_path / "c"))
@@ -190,9 +198,12 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(no_card,
     params = _numpy_tree(transformer.init_params(cfg, seed=0, device="cpu"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transformer.train_state_from_numpy(cfg, (params, params, 0))
-    for main in (quickstart.main, serve_early_exit.main):
+    for main in (quickstart.main, serve_early_exit.main,
+                 gnn_and_recsys.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn.init_params(get_arch("gat-cora").model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_retriever.main(ckpt=str(tmp_path / "r"))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -15,7 +15,8 @@ The mesh: ``moe_forward`` on 8 spawned gloo ranks, mesh (2, 4), against
 the reference's ``shard_map`` under ``jax.jit`` on 8 fake host devices
 in a subprocess (as ``tests/test_torch_collectives.py`` runs it), with
 the bound of ``tests/test_distributed.py::test_moe_sharded_matches_
-single_device`` (2e-2) against the single-device reference.
+single_device`` (2e-2) against the single-device reference; and its
+gradients under autograd against ``_moe_core``'s in one process.
 """
 import dataclasses
 import os
@@ -265,8 +266,17 @@ def _moe_rank(rank, world, arch, inp):
             {**p, **{n: torch.from_numpy(inp[n])
                      for n in t_moe.EXPERT_WEIGHTS}},
             torch.from_numpy(inp["x"])[:1], cfg)
+        # this DP block's loss against a fixed cotangent, and its gradients
+        for leaf in (p["router"]["w"], *(p[n] for n in t_moe.EXPERT_WEIGHTS),
+                     x):
+            leaf.requires_grad_(True)
+        o, a = t_moe.moe_forward(p, x, cfg)
+        c = local_block(torch.from_numpy(inp["c"]), data)
+        ((o.float() * c).sum() + a).backward()
+        grads = {"x": x.grad, "router": p["router"]["w"].grad,
+                 **{n: p[n].grad for n in t_moe.EXPERT_WEIGHTS}}
     assert context.current_mesh() is None
-    return out, aux, odd
+    return out, aux, odd, grads
 
 
 @pytest.fixture(scope="module")
@@ -275,7 +285,7 @@ def mesh_runs(tmp_path_factory):
     cfg, _ = _cfgs(ARCH_MESH)
     tree, _, _ = _params(cfg, seed=3)
     inp = dict(router=tree["router"]["w"], wi=tree["wi"], wg=tree["wg"],
-               wo=tree["wo"], x=_x(cfg, seed=4))
+               wo=tree["wo"], x=_x(cfg, seed=4), c=_x(cfg, seed=5))
     tmp = tmp_path_factory.mktemp("moe")
     np.savez(tmp / "inputs.npz", **inp)
     env = dict(os.environ)
@@ -327,7 +337,7 @@ def test_moe_forward_on_a_mesh_matches_reference(mesh_runs):
     single = single.float().numpy()
     np.testing.assert_allclose(got, single,
                                atol=2.0 ** -8 * np.abs(single).max())
-    for _, aux, _ in port:
+    for _, aux, _, _ in port:
         # the mean of the two DP shards' aux against the reference's
         assert abs(float(aux) - float(ref["aux"])) < 1e-6
         assert abs(float(aux) - float(ref["ref_aux"])) < 1e-3
@@ -341,5 +351,45 @@ def test_moe_forward_on_a_mesh_falls_back_for_an_odd_batch(mesh_runs):
     tp = {"router": {"w": torch.from_numpy(inp["router"])},
           **{n: torch.from_numpy(inp[n]) for n in t_moe.EXPERT_WEIGHTS}}
     want, _ = t_moe._moe_core(tp, torch.from_numpy(inp["x"])[:1], tcfg)
-    for _, _, odd in port:
+    for _, _, odd, _ in port:
         assert torch.equal(odd, want)
+
+
+def test_moe_forward_on_a_mesh_has_the_gradient_of_its_dp_losses(mesh_runs):
+    """Under autograd the mesh path's gradient is that of the sum of the
+    DP ranks' losses, each DP block routed on its own with the experts in
+    bf16: against ``_moe_core`` on each DP block with the whole weights in
+    one process.  A rank's x gradient is its block's, whole; each expert
+    weight's dim-1 shard gets its DP gradients reduce-scattered, the rows
+    of a model rank's own experts (the model ranks' gradients summed give
+    the whole shard); the router's gradient is the DP rank's own (summed
+    over the DP ranks).  Within one bf16 rounding of each gradient's
+    scale (2^-8), as the forward."""
+    _, port, inp = mesh_runs
+    _, tcfg = _cfgs(ARCH_MESH)
+    leaves = {"router": torch.from_numpy(inp["router"]).requires_grad_(),
+              **{n: torch.from_numpy(inp[n]).requires_grad_()
+                 for n in t_moe.EXPERT_WEIGHTS}}
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    c = torch.from_numpy(inp["c"])
+    p = {"router": {"w": leaves["router"]},
+         **{n: leaves[n].to(torch.bfloat16) for n in t_moe.EXPERT_WEIGHTS}}
+    total = 0.0
+    for xb, cb in zip(x.chunk(2), c.chunk(2)):
+        o, a = t_moe._moe_core(p, xb, tcfg)
+        total = total + (o.float() * cb).sum() + a
+    total.backward()
+    grads = [g for *_, g in port]
+
+    def close(got, want):
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                   atol=2.0 ** -8 * float(want.abs().max()))
+
+    for i in range(2):
+        ranks = grads[4 * i: 4 * i + 4]
+        for g in ranks:
+            close(g["x"], x.grad.chunk(2)[i])
+            assert torch.equal(g["router"], ranks[0]["router"])
+        for n in t_moe.EXPERT_WEIGHTS:
+            close(sum(g[n] for g in ranks), leaves[n].grad.chunk(2, dim=1)[i])
+    close(grads[0]["router"] + grads[4]["router"], leaves["router"].grad)
