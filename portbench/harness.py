@@ -1,0 +1,238 @@
+"""One run of one cell: set-up, the measured window, the traced window,
+the check against the reference, and the result's line.
+
+``run.py`` calls :func:`run` after it has seen the cards the cell
+needs; the tests call it on the CPU at a tiny configuration.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import corpus as corpus_mod
+from . import drive, judge, spec, trace
+from .reference import counts
+
+# the traced window: at most this long, and no longer than the window
+TRACE_SECONDS = 2.0
+# documents sampled for the nearest-centre share checked at set-up, and
+# the least share that makes the lists a nearest-centroid partition, as
+# an IVF index's lists are
+OWN_CENTRE_SAMPLE = 4096
+OWN_CENTRE_MIN = 0.99
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def host_note() -> str:
+    """The seconds a fixed pure-Python loop takes now: the host's speed,
+    which a host-bound window follows (the host's steal counter reads 0
+    on the card's machine, so it is not read)."""
+    t = time.perf_counter()
+    x = 0
+    for i in range(1_000_000):
+        x += i
+    return f"host: probe loop {time.perf_counter() - t:.4f} s"
+
+
+@dataclasses.dataclass
+class Run:
+    """What the metric readers read (``portbench/metrics/*.py``)."""
+    loop: str
+    setup_s: float
+    window: drive.Window
+    traced: Optional[drive.Window] = None
+    trace: Optional[trace.Trace] = None
+    # least seconds for the traced window's needed work, by component
+    bound_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _sync_of(dev: torch.device):
+    if dev.type == "cuda":
+        return lambda: torch.cuda.synchronize(dev)
+    return lambda: None
+
+
+def needed_bounds(c: corpus_mod.Corpus, cfg: dict, w: drive.Window
+                  ) -> Dict[str, float]:
+    """The least seconds for the work the window's served queries need
+    (``reference/counts.py``), by component."""
+    idx = np.concatenate([call.pool_idx for call in w.calls])
+    probes = np.concatenate([
+        [call.report.probes.get(j, 0)
+         for j in range(call.pool_idx.shape[0])]
+        for call in w.calls]).astype(np.int64)
+    uniq, inv = np.unique(idx, return_inverse=True)
+    cum = counts.live_rows_by_probes(
+        c.pool[torch.as_tensor(uniq, device=c.pool.device)], c.centroids,
+        c.sizes, cfg["n_probe"]).cpu().numpy()
+    rows = int(cum[inv, probes].sum())
+    d, lists = cfg["dim"], cfg["n_lists"]
+    return {
+        "scan": counts.bound_s(counts.scan_bytes(rows, d), 0),
+        "rank": counts.bound_s(0, counts.ranking_flops(idx.shape[0], d,
+                                                       lists)),
+        "table": counts.bound_s(counts.table_bytes(lists, d), 0),
+    }
+
+
+@dataclasses.dataclass
+class Bench:
+    """A cell set up: its corpus on the device, the program's scheduler
+    over it, and the generator of its traffic."""
+    cell: spec.Cell
+    corpus: corpus_mod.Corpus
+    sched: object
+    load: drive.Load
+    sums: tuple
+    sync: object
+
+    @property
+    def cfg(self) -> dict:
+        return self.cell.config
+
+
+def setup(root: Path, workload: str, seed: int, dev: torch.device
+          ) -> Bench:
+    """Make the corpus, lay out the index, build the program's scheduler
+    over it and warm it up at the cell's shapes."""
+    from repro_torch.core.ivf import IVFIndex
+    from repro_torch.core.serving import WaveScheduler
+
+    cell = spec.cell(root, workload)
+    cfg, mix = cell.config, cell.traffic
+    sync = _sync_of(dev)
+    t = time.perf_counter()
+    c = corpus_mod.make(cfg, mix["pool"], seed, dev)
+    sync()
+    log(f"corpus: {c.n_docs} docs in {cfg['n_lists']} lists, "
+        f"{c.docs.shape[0]} rows x {cfg['dim']}, pool {c.pool.shape[0]}, "
+        f"{time.perf_counter() - t:.3f} s")
+    share = corpus_mod.own_centre_share(c, OWN_CENTRE_SAMPLE, seed)
+    log(f"documents nearest their own centre: {share:.4f} "
+        f"(at least {OWN_CENTRE_MIN})")
+    if share < OWN_CENTRE_MIN:
+        raise RuntimeError(
+            f"{cfg['name']}: only {share:.4f} of the sampled documents lie "
+            f"nearest their own list's centre; the lists are no IVF "
+            f"partition")
+    sums = corpus_mod.checksum(c)
+    index = IVFIndex(c.centroids, c.docs, c.doc_ids, c.offsets, c.sizes,
+                     c.list_pad)
+    sched = WaveScheduler(
+        index, wave_size=cfg["wave_size"], chunk=cfg["chunk"], k=cfg["k"],
+        n_probe=cfg["n_probe"], delta=cfg["patience_delta"],
+        phi=cfg["patience_phi"], use_fused=True)
+
+    def serve(idx: np.ndarray):
+        return sched.serve(c.pool[torch.as_tensor(idx, device=dev)])
+
+    load = drive.Load(mix, c.pool.shape[0], serve, sync)
+    t = time.perf_counter()
+    load.warmup()
+    log(f"warm-up {mix['warmup']}: {time.perf_counter() - t:.3f} s")
+    return Bench(cell, c, sched, load, sums, sync)
+
+
+def check(bench: Bench, calls, seed: int, control: bool = False,
+          explain: bool = False, every_query: bool = False) -> dict:
+    """The numbers compared for the program's answers (``program``);
+    with ``control``, the control's on the same sampled queries
+    (``control``); with ``explain``, each answer that parts from the
+    reference, explained (``mismatches``, ``judge.explain``).  With
+    ``every_query``, one answer of each query served is judged in place
+    of the configuration's sample."""
+    c, cfg = bench.corpus, bench.cfg
+    chk = cfg["check"]
+    numbers = {"missing": judge.missing(calls),
+               "inputs_changed": int(corpus_mod.checksum(c) != bench.sums)}
+    n, longest = chk["sample"], chk["longest"]
+    if every_query:
+        n = longest = np.unique(np.concatenate(
+            [x.pool_idx for x in calls])).shape[0]
+    ans = judge.sample(calls, n, longest, seed)
+    ref, inv = judge.reference_of(c, cfg, ans.pool_idx)
+    numbers.update(judge.compare(c, cfg, ans, ref, inv))
+    out = {"program": numbers}
+    if control:
+        ctl = judge.control_answers(c, cfg, ans.pool_idx)
+        out["control"] = judge.compare(c, cfg, ctl, ref, inv)
+    if explain:
+        out["mismatches"] = judge.explain(c, cfg, ans, ref, inv)
+    return out
+
+
+def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
+        dev: torch.device, t_start: float, age_at_start: float = 0.0
+        ) -> dict:
+    """One run; returns the result's line as a dict, ``checks`` last."""
+    bench = setup(root, workload, seed, dev)
+    cell, cfg, mix = bench.cell, bench.cfg, bench.cell.traffic
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_s = age_at_start + time.perf_counter() - t_start
+    win = bench.load.window(seconds)
+    note = host_note()
+    served = sum(x.pool_idx.shape[0] for x in win.calls)
+    log(f"window: {win.seconds:.3f} s, {len(win.calls)} calls, {served} "
+        f"queries, {sum(x.report.waves for x in win.calls)} waves, "
+        f"{sum(sum(x.report.probes.values()) for x in win.calls) / served:.4f}"
+        f" probes a query; {note}")
+    result_run = Run(mix["loop"], setup_s, win)
+    if traced:
+        tw, tr = trace.traced(
+            lambda: bench.load.window(min(TRACE_SECONDS, seconds)),
+            bench.sync)
+        result_run.traced, result_run.trace = tw, tr
+        log(f"traced window: {tr.window_s:.3f} s, busy {tr.busy_s:.6f} s, "
+            f"{len(tw.calls)} calls, reduced in {tr.reduce_s:.3f} s")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    bench.sched = bench.load = None
+    calls = win.calls + (result_run.traced.calls if traced else [])
+
+    # -- the check, once the windows have closed ---------------------------
+    t = time.perf_counter()
+    numbers = check(bench, calls, seed)["program"]
+    if traced:
+        result_run.bound_s = needed_bounds(bench.corpus, cfg,
+                                           result_run.traced)
+    log(f"check against the reference: {time.perf_counter() - t:.3f} s")
+
+    metrics = {}
+    for m in (cell.per_layer if traced else cell.end_to_end):
+        v = spec.reader(root, m["name"])(result_run)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+              "kind": torch.cuda.get_device_name(dev)
+              if dev.type == "cuda" else "cpu",
+              "count": 1, "memory_peak_bytes": int(peak)}
+    out = {"attempted": sum(x.pool_idx.shape[0] for x in calls),
+           "failed": numbers["missing"], "metrics": metrics,
+           "device": device}
+    if traced:
+        tr = result_run.trace
+        device.update(busy_s=tr.busy_s, window_s=tr.window_s)
+        out["breakdown"] = {"device_ops": [list(x) for x in tr.device_ops],
+                            "idle_gaps": [list(x) for x in tr.idle_gaps]}
+    limits = cfg["check"]["limits"]
+    failing = judge.verdict(numbers, limits)
+    out["correct"] = not failing
+    for n in sorted(set(numbers) - set(limits)):
+        log(f"printed only, {n}: {numbers[n]!r}")
+    out["checks"] = {n: {"value": numbers.get(n), "limit": lim}
+                     for n, lim in limits.items()}
+    for n, lim in limits.items():
+        log(f"check {n}: {numbers.get(n)!r} limit {lim!r}"
+            + (" FAILS" if n in failing else ""))
+    return {key: out[key] for key in ("correct", "attempted", "failed",
+                                      "metrics", "device", "breakdown",
+                                      "checks") if key in out}

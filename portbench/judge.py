@@ -1,0 +1,236 @@
+"""The comparison that decides ``correct``.
+
+Served answers are judged by what they say, against the plain
+reference (``reference/ivf_patience.py``), on a sample drawn from the
+seed once the window has closed: the answers with the most probes and a
+uniform draw of the rest.  Each sampled answer names its query, its
+top-k ids and its probe count C.  The numbers compared:
+
+- ``missing``: queries sent in the window that got no answer;
+- ``inputs_changed``: 1 if any input both sides read (corpus, layout,
+  query pool) differs after the window from what set-up made;
+- ``invalid``: sampled answers that name an id twice or an id that is
+  no document;
+- ``exit_mismatch_pct``: the share of sampled answers whose C is not
+  the reference's patience exit, where the reference finds no tie
+  within ``tie_tol`` at which the two can part (:func:`partings`): a
+  float32 program may break such a tie either way;
+- ``gap_share_pct``: the share of sampled answers whose ids fall short
+  of the reference's top-k after the same C probes by more than
+  ``gap_tol`` in float64 score at some rank: the answer's ids scored in
+  float64 and sorted, against the reference's sorted scores.
+
+``probe_mismatch_pct``, the share whose C is not the reference's, ties
+or not, and ``score_gap_max``, the widest shortfall, are printed beside
+them.  :func:`explain` lists each answer that parts from the reference
+with the margins it was judged by.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .reference import ivf_patience
+
+INF = float("inf")
+
+
+@dataclasses.dataclass
+class Answers:
+    """Sampled answers: pool rows, (m, k) ids and (m,) probe counts."""
+    pool_idx: np.ndarray
+    ids: np.ndarray
+    probes: np.ndarray
+
+
+def sample(calls, n: int, longest: int, seed: int) -> Answers:
+    """``longest`` answers of distinct queries with the most probes (one
+    answer of each query and ties in a seeded order) and a uniform draw
+    of ``n - longest`` of the rest; all of them when there are at most
+    ``n``.  Queries without an answer are ``missing``'s to count."""
+    rng = np.random.default_rng([seed, 0x5A3F1E])
+    where = [(c, j) for c, call in enumerate(calls)
+             for j in range(call.pool_idx.shape[0])
+             if j in call.report.results and j in call.report.probes]
+    probes = np.array([calls[c].report.probes[j] for c, j in where])
+    if len(where) <= n:
+        pick = np.arange(len(where))
+    else:
+        pool = np.array([calls[c].pool_idx[j] for c, j in where])
+        order = rng.permutation(len(where))
+        _, first = np.unique(pool[order], return_index=True)
+        one = order[first][rng.permutation(first.shape[0])]
+        top = one[np.argsort(-probes[one], kind="stable")][:longest]
+        rest = np.setdiff1d(np.arange(len(where)), top)
+        pick = np.concatenate(
+            [top, rng.choice(rest, n - top.shape[0], replace=False)])
+    sel = [where[i] for i in pick]
+    return Answers(
+        np.array([calls[c].pool_idx[j] for c, j in sel], np.int64),
+        np.stack([np.asarray(calls[c].report.results[j]) for c, j in sel]
+                 ).astype(np.int64),
+        probes[pick].astype(np.int64))
+
+
+def missing(calls) -> int:
+    """Queries sent without an answer (or with a probe count) back."""
+    n = 0
+    for call in calls:
+        want = set(range(call.pool_idx.shape[0]))
+        got = set(call.report.results) & set(call.report.probes)
+        n += len(want - got)
+    return n
+
+
+def reference_of(corpus, cfg: dict, pool_idx: np.ndarray, *,
+                 tf32: bool = False):
+    """The reference over the distinct queries of ``pool_idx``; returns
+    it and the row of each of ``pool_idx`` in it."""
+    uniq, inv = np.unique(pool_idx, return_inverse=True)
+    q = corpus.pool[torch.as_tensor(uniq, device=corpus.pool.device)]
+    ref = ivf_patience.search(
+        q, corpus.docs, corpus.doc_ids, corpus.offsets, corpus.sizes,
+        corpus.centroids, k=cfg["k"], n_probe=cfg["n_probe"],
+        delta=cfg["patience_delta"], phi=cfg["patience_phi"],
+        list_pad=cfg["list_pad"], tf32=tf32)
+    return ref, inv
+
+
+def control_answers(corpus, cfg: dict, pool_idx: np.ndarray) -> Answers:
+    """The control: the reference in TF32 put in the program's place,
+    its answers at its own patience exit."""
+    ref, inv = reference_of(corpus, cfg, pool_idx, tf32=True)
+    rows = torch.arange(ref.probes.shape[0], device=ref.probes.device)
+    ids = ref.ids[rows, ref.probes - 1].cpu().numpy()
+    return Answers(pool_idx, ids[inv], ref.probes.cpu().numpy()[inv])
+
+
+def _judged(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
+            block: int = 1024):
+    """Per sampled answer: invalid, its probe count out of range, and
+    its score shortfall against the reference's top-k after its own C
+    probes (inf where it is invalid or out of range)."""
+    dev = corpus.docs.device
+    m, k = ans.ids.shape
+    bad = (ans.ids < -1) | (ans.ids >= corpus.n_docs)
+    srt = np.sort(np.where(ans.ids >= 0, ans.ids, -1 - np.arange(k)), 1)
+    invalid = bad.any(1) | (srt[:, 1:] == srt[:, :-1]).any(1)
+    probes_ok = (ans.probes >= 1) & (ans.probes <= cfg["n_probe"])
+    gaps = np.full(m, INF)
+    ok = ~invalid & probes_ok
+    for s in range(0, m, block):
+        sel = np.nonzero(ok[s:s + block])[0] + s
+        if not sel.size:
+            continue
+        rows = torch.as_tensor(inv[sel], device=dev)
+        at = torch.as_tensor(ans.probes[sel] - 1, device=dev)
+        want = ref.scores[rows, at]                      # (b, k) sorted
+        ids = torch.as_tensor(ans.ids[sel], device=dev)
+        q = corpus.pool[torch.as_tensor(ans.pool_idx[sel], device=dev)]
+        got = ivf_patience.doc_scores(q, corpus.docs, corpus.id_rows, ids)
+        got = torch.sort(got, dim=1, descending=True).values
+        short = torch.where(torch.isinf(want) & (want < 0),
+                            torch.zeros_like(want), want - got)
+        gaps[sel] = short.clamp(min=0).amax(1).cpu().numpy()
+    return invalid, probes_ok, gaps
+
+
+def partings(corpus, cfg: dict, ans: Answers, ref_probes: np.ndarray,
+             sel: np.ndarray) -> Dict[str, np.ndarray]:
+    """Where the answers ``sel`` can part from the reference, and how
+    near a tie the reference is there (``ivf_patience.margins``).
+
+    With ``m`` the lesser of the two probe counts, one side counted
+    phi >= Phi at a probe of ``[m - Delta, m)`` where the other did not,
+    or both probed the same number of lists but not the same lists.
+    ``kept`` at those probes depends on the top-k after probes
+    ``[lo, m)``, ``lo = m - Delta - 1``, and on the probe order through
+    rank ``m``.  So: ``boundary``, the narrowest k-th-boundary margin over
+    ``[lo, m)``, and ``centroid``, the narrowest gap between neighbouring
+    centroid scores over ranks ``[0, m)``, each with where it lies
+    (``*_at``), and ``tied``: either under ``tie_tol``."""
+    dev = corpus.docs.device
+    q = corpus.pool[torch.as_tensor(ans.pool_idx[sel], device=dev)]
+    mg = ivf_patience.margins(
+        q, corpus.docs, corpus.doc_ids, corpus.offsets, corpus.sizes,
+        corpus.centroids, k=cfg["k"], n_probe=cfg["n_probe"],
+        list_pad=cfg["list_pad"])
+    bnd, cen = mg.boundary.cpu().numpy(), mg.centroid.cpu().numpy()
+    m = np.minimum(ans.probes[sel], ref_probes[sel])
+    lo = np.maximum(0, m - cfg["patience_delta"] - 1)
+    out = {key: np.zeros(sel.shape[0], dtype) for key, dtype in (
+        ("lo", np.int64), ("boundary", float), ("boundary_at", np.int64),
+        ("centroid", float), ("centroid_at", np.int64))}
+    for r in range(sel.shape[0]):
+        b, c = bnd[r, lo[r]:m[r]], cen[r, :m[r]]
+        out["lo"][r] = lo[r]
+        out["boundary"][r], out["boundary_at"][r] = b.min(), lo[r] + b.argmin()
+        out["centroid"][r], out["centroid_at"][r] = c.min(), c.argmin()
+    tol = cfg["check"]["tie_tol"]
+    out["tied"] = (out["boundary"] < tol) | (out["centroid"] < tol)
+    return out
+
+
+def compare(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray
+            ) -> Dict[str, float]:
+    """The answer-by-answer numbers (see the module's docstring)."""
+    invalid, probes_ok, gaps = _judged(corpus, cfg, ans, ref, inv)
+    ref_probes = ref.probes.cpu().numpy()[inv]
+    mismatch = ref_probes != ans.probes
+    untied = mismatch & ~probes_ok
+    sel = np.nonzero(mismatch & probes_ok)[0]
+    if sel.size:
+        untied[sel] = ~partings(corpus, cfg, ans, ref_probes, sel)["tied"]
+    return {
+        "invalid": int(invalid.sum() + (~probes_ok).sum()),
+        "exit_mismatch_pct": 100.0 * float(untied.mean()),
+        "gap_share_pct": 100.0 * float(
+            (gaps > cfg["check"]["gap_tol"]).mean()),
+        "probe_mismatch_pct": 100.0 * float(mismatch.mean()),
+        "score_gap_max": float(gaps.max()) if gaps.size else 0.0,
+    }
+
+
+def explain(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray
+            ) -> List[dict]:
+    """Each sampled answer whose C is not the reference's, or whose ids
+    fall short of the reference's top-k by more than ``gap_tol``, with
+    the reference's ``kept`` after each probe from ``lo`` to the greater
+    C, the margins of :func:`partings` and the answer's score
+    shortfall."""
+    _, _, gaps = _judged(corpus, cfg, ans, ref, inv)
+    ref_probes = ref.probes.cpu().numpy()[inv]
+    bad = np.nonzero(np.isfinite(gaps) & (
+        (ref_probes != ans.probes) | (gaps > cfg["check"]["gap_tol"])))[0]
+    if not bad.size:
+        return []
+    part = partings(corpus, cfg, ans, ref_probes, bad)
+    out = []
+    for r, i in enumerate(bad):
+        cp, cr = int(ans.probes[i]), int(ref_probes[i])
+        top = ref.ids[inv[i]].cpu().numpy()                   # (N, k)
+        kept = [int(np.intersect1d(top[h - 1][top[h - 1] >= 0],
+                                   top[h]).size) if h else 0
+                for h in range(int(part["lo"][r]), max(cp, cr))]
+        out.append({
+            "pool_row": int(ans.pool_idx[i]), "program_probes": cp,
+            "reference_probes": cr, "kept_from_probe": int(part["lo"][r]),
+            "reference_kept": kept,
+            "boundary_margin_min": float(part["boundary"][r]),
+            "boundary_margin_at": int(part["boundary_at"][r]),
+            "centroid_gap_min": float(part["centroid"][r]),
+            "centroid_gap_at": int(part["centroid_at"][r]),
+            "tied": bool(part["tied"][r]),
+            "score_gap": float(gaps[i])})
+    return out
+
+
+def verdict(numbers: Dict[str, float], limits: Dict[str, float]
+            ) -> List[str]:
+    """The numbers that pass their limits' upper ends: none means
+    correct.  A number with no limit is printed only."""
+    return [n for n, lim in limits.items()
+            if not numbers.get(n, INF) <= lim]

@@ -1,0 +1,155 @@
+"""``BENCHMARK.json`` as the harness reads it, and the files it names.
+
+Everything that belongs to one configuration, traffic mix or metric is
+a file of its own, found by name:
+
+- a configuration: the ``file`` its entry in ``BENCHMARK.json`` gives
+  (``portbench/configs/<config>.json``);
+- a traffic mix: ``portbench/traffic/<traffic>.json``;
+- a metric: ``portbench/metrics/<metric>.py``, which defines
+  ``read(run) -> float | None``.
+
+So a later cell, mix or metric is added as files and entries, and no
+file here changes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import re
+from pathlib import Path
+from typing import Callable, List, Optional
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+SOURCES_E2E = {"host_clock", "device_trace"}
+SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
+            "end_to_end", "per_layer"}
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    config: dict          # the configuration file's contents
+    traffic: dict         # the traffic mix file's contents
+    chips: int
+    end_to_end: List[dict]
+    per_layer: List[dict]
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _reported(metric: dict, cell: str) -> bool:
+    return cell in metric.get("workloads", [cell])
+
+
+def cell(root: Path, name: str) -> Cell:
+    """The cell ``name`` of ``root/BENCHMARK.json`` with its files read."""
+    bench = load_json(root / "BENCHMARK.json")
+    by_name = {w["name"]: w for w in bench["workloads"]}
+    if name not in by_name:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json "
+                       f"(have {sorted(by_name)})")
+    w = by_name[name]
+    cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    return Cell(
+        name=name,
+        config=load_json(root / cfg_entry["file"]),
+        traffic=load_json(root / "portbench" / "traffic"
+                          / f"{w['traffic']}.json"),
+        chips=int(w["chips"]),
+        end_to_end=[m for m in bench["end_to_end"] if _reported(m, name)],
+        per_layer=[m for m in bench["per_layer"] if _reported(m, name)])
+
+
+def reader(root: Path, metric: str) -> Callable[[object], Optional[float]]:
+    """``read`` of ``portbench/metrics/<metric>.py`` (a name may hold
+    dots, so the file is loaded by its path)."""
+    path = root / "portbench" / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_metric_{metric.replace('.', '_').replace('-', '_')}",
+        path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def problems(root: Path) -> List[str]:
+    """What in ``root/BENCHMARK.json`` breaks the harness's rules: names
+    and units of the allowed characters, unique names, every file named
+    present, and every cell that reports a per-layer metric reporting
+    the end-to-end metric it ``moves``."""
+    bench = load_json(root / "BENCHMARK.json")
+    out = []
+    if set(bench) != TOP_KEYS:
+        out.append(f"top-level keys {sorted(bench)}")
+    cells = {w["name"]: w for w in bench["workloads"]}
+    configs = {c["name"]: c for c in bench["configs"]}
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    names = [*cells, *configs, *e2e, *(m["name"] for m in bench["per_layer"])]
+    for group in (cells, configs,
+                  [m["name"] for m in bench["end_to_end"]
+                   + bench["per_layer"]]):
+        if len(set(group)) != len(list(group)):
+            out.append(f"duplicate names in {sorted(group)}")
+    for n in names:
+        if not NAME.match(n):
+            out.append(f"bad name {n!r}")
+    for c in configs.values():
+        if not (root / c["file"]).is_file():
+            out.append(f"config file {c['file']} missing")
+        for key in c["reduced"]:
+            if not NAME.match(key):
+                out.append(f"bad reduced key {key!r}")
+    for w in cells.values():
+        if w["config"] not in configs:
+            out.append(f"{w['name']}: unknown config {w['config']}")
+        if not NAME.match(w["traffic"]):
+            out.append(f"bad traffic name {w['traffic']!r}")
+        elif not (root / "portbench" / "traffic"
+                  / f"{w['traffic']}.json").is_file():
+            out.append(f"{w['name']}: traffic file missing")
+        if w["chips"] not in (1, 4):
+            out.append(f"{w['name']}: chips {w['chips']}")
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if not UNIT.match(m["unit"]):
+            out.append(f"{m['name']}: bad unit {m['unit']!r}")
+        if m["better"] not in ("lower", "higher"):
+            out.append(f"{m['name']}: better {m['better']!r}")
+        if not (root / "portbench" / "metrics"
+                / f"{m['name']}.py").is_file():
+            out.append(f"{m['name']}: no reader file")
+        for c in m.get("workloads", []):
+            if c not in cells:
+                out.append(f"{m['name']}: unknown workload {c}")
+    for m in bench["end_to_end"]:
+        if m["source"] not in SOURCES_E2E:
+            out.append(f"{m['name']}: end-to-end source {m['source']}")
+        if not 0.01 <= m["bound"] <= 0.25:
+            out.append(f"{m['name']}: bound {m['bound']}")
+    if "setup_s" not in e2e:
+        out.append("no setup_s")
+    for m in bench["per_layer"]:
+        if m["source"] not in SOURCES:
+            out.append(f"{m['name']}: source {m['source']}")
+        moved = e2e.get(m["moves"])
+        if moved is None:
+            out.append(f"{m['name']}: moves unknown {m['moves']}")
+            continue
+        for c in m.get("workloads", list(cells)):
+            if not _reported(moved, c):
+                out.append(f"{m['name']}: cell {c} does not report "
+                           f"{m['moves']}")
+    for c in cells:
+        ends = [m["name"] for m in bench["end_to_end"] if _reported(m, c)]
+        if "setup_s" not in ends or len(ends) < 2:
+            out.append(f"{c}: end-to-end metrics {ends}")
+        if not any(_reported(m, c) for m in bench["per_layer"]):
+            out.append(f"{c}: no per-layer metric")
+    return out
+
