@@ -39,6 +39,7 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, _as_queries,
 from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
                                        RUNG_TIGHTEN, DegradationLadder)
 from repro_torch.kernels import ops as kops
+from repro_torch.trace import span
 
 
 class LaneState(NamedTuple):
@@ -212,12 +213,18 @@ class ServeReport:
     degraded: Dict[int, str] = dataclasses.field(default_factory=dict)
     latency_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
     deadline_ms: Optional[float] = None
-    wave_cost_ms: float = 0.0   # final EMA of per-wave cost
+    # EMA of a wave's host ms, from the clock read after the wave's first
+    # device read to the return of _advance and on_wave: the wave's
+    # advance on the device is not waited for
+    wave_cost_ms: float = 0.0
     # -- background rebuild accounting (zero without a rebuilder) --
     epoch_swaps: int = 0        # higher-epoch versions adopted (drained)
     drain_waves: int = 0        # waves spent draining before a swap
     rebuild_ticks: int = 0      # rebuild stages run between waves
     rebuild_throttled: int = 0  # ticks skipped under deadline pressure
+    # -- device-to-host reads (each waits for the device's queued work) --
+    host_syncs: int = 0         # reads made
+    sync_wait_ms: float = 0.0   # host ms spent in them
 
     @property
     def degraded_fraction(self) -> float:
@@ -225,6 +232,24 @@ class ServeReport:
 
     def shed_ids(self) -> List[int]:
         return [q for q, r in self.degraded.items() if r == "shed"]
+
+
+class _HostReads:
+    """The device-to-host reads of one ``serve()`` call: each is a
+    ``serve.sync`` span, counted, and timed on the host clock (the wait
+    for the device's queued work and the copy)."""
+
+    def __init__(self):
+        self.count = 0
+        self.wait_ms = 0.0
+
+    def __call__(self, t: torch.Tensor) -> np.ndarray:
+        with span("serve.sync"):
+            t0 = time.perf_counter()
+            out = t.cpu().numpy()
+            self.wait_ms += 1e3 * (time.perf_counter() - t0)
+        self.count += 1
+        return out
 
 
 class WaveScheduler:
@@ -325,7 +350,18 @@ class WaveScheduler:
               on_wave: Optional[Callable[[int], None]] = None
               ) -> ServeReport:
         """Serve every query; ``on_wave(w)`` runs on the host after wave
-        ``w`` (1-based) — the hook a mutation stream publishes from."""
+        ``w`` (1-based) — the hook a mutation stream publishes from.
+
+        Under a torch profiler the call is a ``serve`` span holding
+        ``serve.harvest``, ``serve.admit`` and ``serve.advance`` spans,
+        and every device-to-host read is a ``serve.sync`` span
+        (``repro_torch.trace``)."""
+        with span("serve"):
+            return self._serve(queries, compact, on_wave)
+
+    def _serve(self, queries, compact: bool,
+               on_wave: Optional[Callable[[int], None]]) -> ServeReport:
+        read = _HostReads()
         queries = _as_queries(queries, self.device)
         nq, d = queries.shape
         state = _empty_state(self.w, d, self.n, self.k, self.device)
@@ -352,19 +388,20 @@ class WaveScheduler:
         self._pinned = None if self.registry is None \
             else self.registry.current()
         while True:
-            active = state.active.cpu().numpy()
-            now = self._now()
-            # harvest exits: lanes that flipped active->inactive
-            done = np.nonzero(prev_active & ~active)[0]
-            if done.size:
-                lanes = torch.as_tensor(done, device=self.device)
-                ids = state.topk_ids[lanes].cpu().numpy()
-                hs = state.h[lanes].cpu().numpy()
-                for j, lane in enumerate(done):
-                    qid = int(prev_qids[lane])
-                    results[qid] = ids[j]
-                    probes[qid] = int(hs[j])
-                    latency[qid] = now - lane_admit[lane]
+            with span("serve.harvest"):
+                active = read(state.active)
+                now = self._now()
+                # harvest exits: lanes that flipped active->inactive
+                done = np.nonzero(prev_active & ~active)[0]
+                if done.size:
+                    lanes = torch.as_tensor(done, device=self.device)
+                    ids = read(state.topk_ids[lanes])
+                    hs = read(state.h[lanes])
+                    for j, lane in enumerate(done):
+                        qid = int(prev_qids[lane])
+                        results[qid] = ids[j]
+                        probes[qid] = int(hs[j])
+                        latency[qid] = now - lane_admit[lane]
             # epoch-fenced version adoption
             draining, swapped = self._refresh_pin(bool(active.any()))
             epoch_swaps += swapped
@@ -377,12 +414,12 @@ class WaveScheduler:
                 rungs = np.where(active, rungs, RUNG_NONE)
                 if (rungs > RUNG_NONE).any():
                     # one read of h a wave, one of the forced lanes' top-k
-                    h_np = state.h.cpu().numpy()
+                    h_np = read(state.h)
                     force = active & (rungs == RUNG_FORCE)
                     if force.any():
                         lanes = np.nonzero(force)[0]
-                        tid = state.topk_ids[torch.as_tensor(
-                            lanes, device=self.device)].cpu().numpy()
+                        tid = read(state.topk_ids[torch.as_tensor(
+                            lanes, device=self.device)])
                         for j, lane in enumerate(lanes):
                             qid = int(prev_qids[lane])
                             results[qid] = tid[j]
@@ -426,28 +463,32 @@ class WaveScheduler:
                         self._flag(degraded, qid, "shed")
                     next_q = min(nq, next_q + room)
                 else:
-                    batch = queries[next_q: next_q + room]
-                    qids = torch.arange(next_q, next_q + batch.shape[0],
-                                        dtype=torch.int32,
-                                        device=self.device)
-                    # admissions rank clusters against the epoch they
-                    # probe
-                    before = active
-                    state = _admit(state, index.centroids, batch, qids,
-                                   self.n)
-                    next_q += batch.shape[0]
-                    active = state.active.cpu().numpy()
-                    lane_admit[active & ~before] = now
+                    with span("serve.admit"):
+                        batch = queries[next_q: next_q + room]
+                        qids = torch.arange(next_q,
+                                            next_q + batch.shape[0],
+                                            dtype=torch.int32,
+                                            device=self.device)
+                        # admissions rank clusters against the epoch
+                        # they probe
+                        before = active
+                        state = _admit(state, index.centroids, batch,
+                                       qids, self.n)
+                        next_q += batch.shape[0]
+                        active = read(state.active)
+                        lane_admit[active & ~before] = now
             if not active.any() and next_q >= nq:
                 break
             occ.append(active.mean())
             lane_steps += self.w * self.chunk
             prev_active = active
-            prev_qids = state.qid.cpu().numpy()
-            state = _advance(index, state, dview, dead,
-                             lane_delta=lane_delta, lane_cap=lane_cap,
-                             chunk=self.chunk, k=self.k, n_probe=self.n,
-                             phi=self.phi, use_fused=self.use_fused)
+            prev_qids = read(state.qid)
+            with span("serve.advance"):
+                state = _advance(index, state, dview, dead,
+                                 lane_delta=lane_delta, lane_cap=lane_cap,
+                                 chunk=self.chunk, k=self.k,
+                                 n_probe=self.n, phi=self.phi,
+                                 use_fused=self.use_fused)
             waves += 1
             if on_wave is not None:
                 on_wave(waves)
@@ -460,7 +501,7 @@ class WaveScheduler:
             if self.rebuilder is not None and self.rebuilder.active:
                 throttle = False
                 if self.deadline_ms is not None:
-                    act_now = state.active.cpu().numpy()
+                    act_now = read(state.active)
                     rem = (self.deadline_ms
                            - (self._now() - lane_admit))[act_now]
                     throttle = self.ladder.throttle_rebuild(
@@ -477,4 +518,6 @@ class WaveScheduler:
                            wave_cost_ms=wave_cost, epoch_swaps=epoch_swaps,
                            drain_waves=drain_waves,
                            rebuild_ticks=rebuild_ticks,
-                           rebuild_throttled=rebuild_throttled)
+                           rebuild_throttled=rebuild_throttled,
+                           host_syncs=read.count,
+                           sync_wait_ms=read.wait_ms)

@@ -1,0 +1,128 @@
+"""The serving loop's spans and host-read counter (``repro_torch.trace``,
+``WaveScheduler.serve``): the spans a profiler records and how they
+nest, ``ServeReport.host_syncs`` against the spans and a hand count,
+the same answers with the profiler on and off, and no span entered
+with it off."""
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+import repro_torch.trace
+from repro_torch.core.ivf import build_index
+from repro_torch.core.serving import WaveScheduler
+from repro_torch.data.synthetic import clustered_corpus
+from repro_torch.runtime.chaos import SimClock
+
+PHASES = ("serve.harvest", "serve.admit", "serve.advance")
+_CFG = dict(wave_size=16, chunk=4, k=10, n_probe=16, delta=3, phi=90.0)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    return clustered_corpus(n_docs=2000, dim=16, n_queries=48, seed=3)
+
+
+@pytest.fixture(scope="module")
+def index(corpus):
+    return build_index(corpus.docs, 32, list_pad=128, n_iters=3,
+                       device="cpu")
+
+
+def _serves(index, queries, deadline):
+    """Two serve() calls; under a deadline, on a simulated clock whose
+    2 ms waves make the ladder read lane state and force exits."""
+    clock = SimClock()
+    ws = WaveScheduler(index, deadline_ms=deadline, clock=clock, **_CFG)
+    return [ws.serve(q, on_wave=lambda w: clock.advance(2.0))
+            for q in (queries[:40], queries[8:20])]
+
+
+def _spans(prof):
+    """(name, start_ns, end_ns) of every span the host recorded."""
+    return sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.is_user_annotation() and e.name().startswith("serve"))
+
+
+def _innermost_parent(spans, i):
+    """The name of the innermost other span that holds span ``i``."""
+    _, s, e = spans[i]
+    holders = [(s0, n) for j, (n, s0, e0) in enumerate(spans)
+               if j != i and s0 <= s and e <= e0]
+    return max(holders)[1] if holders else None
+
+
+@pytest.mark.parametrize("deadline", [None, 5.0])
+def test_spans_nest_and_count_the_host_reads(index, corpus, deadline):
+    q = corpus.queries
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        reps = _serves(index, q, deadline)
+    spans = _spans(prof)
+    names = [n for n, _, _ in spans]
+    assert set(names) == {"serve", "serve.sync", *PHASES}
+    assert names.count("serve") == len(reps)
+    waves = sum(r.waves for r in reps)
+    assert names.count("serve.advance") == waves
+    # one harvest a wave, and the last one that finds every lane idle
+    assert names.count("serve.harvest") == waves + len(reps)
+    assert names.count("serve.sync") == sum(r.host_syncs for r in reps)
+    for i, (n, _, _) in enumerate(spans):
+        parent = _innermost_parent(spans, i)
+        if n == "serve":
+            assert parent is None
+        elif n == "serve.sync":
+            assert parent in ("serve", *PHASES)
+        else:
+            assert parent == "serve"
+    if deadline is not None:
+        assert any(r.degraded for r in reps)
+        # the ladder's reads lie directly inside serve
+        assert any(_innermost_parent(spans, i) == "serve"
+                   and spans[i][0] == "serve.sync"
+                   for i in range(len(spans)))
+
+
+@pytest.mark.parametrize("lanes,n_queries,waves,syncs", [
+    # one lane's query needs two 4-probe waves: admit, advance, advance,
+    # harvest: reads active+active+qid, active+qid, active+topk+h
+    (4, 1, 2, 8),
+    # two lanes, four queries of two waves each: the second pair is
+    # admitted in the wave that harvests the first
+    (2, 4, 4, 15),
+])
+def test_host_syncs_equal_a_hand_count(index, corpus, lanes, n_queries,
+                                       waves, syncs):
+    ws = WaveScheduler(index, wave_size=lanes, chunk=4, k=10, n_probe=8,
+                       delta=100, phi=90.0)
+    rep = ws.serve(corpus.queries[:n_queries])
+    assert rep.waves == waves and set(rep.probes.values()) == {8}
+    assert rep.host_syncs == syncs
+    assert rep.sync_wait_ms >= 0.0
+
+
+@pytest.mark.parametrize("deadline", [None, 5.0])
+def test_same_answers_with_the_profiler_on_and_off(index, corpus,
+                                                   deadline):
+    off = _serves(index, corpus.queries, deadline)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _serves(index, corpus.queries, deadline)
+    for a, b in zip(off, on):
+        assert sorted(a.results) == sorted(b.results)
+        for qid in a.results:
+            np.testing.assert_array_equal(a.results[qid], b.results[qid])
+        assert a.probes == b.probes and a.degraded == b.degraded
+        assert (a.waves, a.lane_steps, a.host_syncs) \
+            == (b.waves, b.lane_steps, b.host_syncs)
+
+
+def test_no_span_is_entered_without_a_profiler(index, corpus,
+                                               monkeypatch):
+    def entered(name):
+        raise AssertionError(f"span {name} entered with no profiler")
+
+    monkeypatch.setattr(repro_torch.trace, "record_function", entered)
+    reps = _serves(index, corpus.queries, 5.0)
+    assert all(r.host_syncs > 0 for r in reps)
+    with pytest.raises(AssertionError, match="span serve entered"):
+        with profile(activities=[ProfilerActivity.CPU]):
+            _serves(index, corpus.queries, None)
