@@ -22,11 +22,15 @@ a line of its own:
    kernel rounds P to bf16), hd 64 and 128, S a tile multiple and not,
    causal or not, and bf16 at MLA's qk 96, v 64 (S 512 and 2,064);
    ``embedding_bag`` bit for bit at D 1, 10, 16 and F 1, 39;
+   ``row_topk`` bit for bit its plain version (the stable sort) on the
+   sims of random unit vectors at the benchmark cells' admission (512 x
+   65,536, k 80) and at this script's wave (128 x 8,192, k 80);
 3. the main path at the paper's widths (``configs/msmarco_ivf``:
    d=768, k=100, N=80, tau=10, patience Delta=7, Phi=95, list_pad=256)
    on a 1M-document synthetic corpus: build the index on the card,
    serve 1,024 queries through the wave scheduler (one fused
-   ``ivf_scan_merge`` launch per chunk), and check it against fused
+   ``ivf_scan_merge`` launch per chunk, one ``row_topk`` launch per
+   admission), and check it against fused
    ``search``, the per-probe kernel pair and brute force;
 3b. the learned exit stages on that index (``learned_train``,
    ``learned_search``, ``learned_fused_vs_pair``, ``learned_features``):
@@ -113,7 +117,10 @@ a line of its own:
    yardstick the port never calls, and its bound; ``topk_merge`` at
    probe 1, at a late probe and at the live pair's width (list rows and
    the gated buffer columns), beside the launch floor (an empty
-   kernel); ``flash_attention`` (the prefill's 96 x 2,048 x 128 bf16,
+   kernel); ``row_topk`` at a merge's width (128 x 356, k 100), the
+   admission's (512 x 65,536, k 80) and a brute force's (128 x 8,000, k
+   10), beside the stable sort and ``torch.topk``; ``flash_attention``
+   (the prefill's 96 x 2,048 x 128 bf16,
    and MiniCPM3's 160 x 2,048 at qk 96, v 64 beside the
    ``scaled_dot_product_attention`` backend PyTorch picks there)
    and ``embedding_bag`` (the bulk batch on both DeepFM tables, D=10
@@ -256,6 +263,17 @@ def near_tie_swaps(gs, gi, ws, wi, what):
             raise AssertionError(f"{what}: {int(bad.sum())} ids differ "
                                  f"and are not near ties")
     return int(diff.sum()), err
+
+
+def unit_sims(n_q, width, dev, *, seed, d=96):
+    """(n_q, width) sims of random unit queries and centroids in d
+    dimensions on ``dev``, as an admission ranks them."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(n_q, d, generator=g, device=dev)
+    c = torch.randn(width, d, generator=g, device=dev)
+    return torch.nn.functional.normalize(q, dim=1) \
+        @ torch.nn.functional.normalize(c, dim=1).T
 
 
 def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -2784,8 +2802,9 @@ def shard_retry(ctx, index, queries, exact, static_recall):
 
         ctx.reset()
         s0, i0, rep0, ms0 = run()
-        ctx.read("search_with_retry (plain scoring)", [],
-                 absent=list(ctx.counter_names))
+        ctx.read("search_with_retry (plain scoring, row_topk ranking)",
+                 ["row_topk"],
+                 absent=[n for n in ctx.counter_names if n != "row_topk"])
         recall = metrics.r_star_at_k(i0, exact)
         print(json.dumps(dict(
             shards=N_SHARDS, rows_per_shard=sh.docs.shape[1],
@@ -3650,6 +3669,7 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.core import (brute_force, build_index, metrics,
                                   policies, search)
+    from repro_torch.core import serving
     from repro_torch.core.serving import WaveScheduler
     from repro_torch.data.synthetic import clustered_corpus, relevant_docs
     from repro_torch.index import (IndexRegistry, LiveIndex,
@@ -3660,6 +3680,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as k_fa
     from repro_torch.kernels import ivf_scan as k_scan
     from repro_torch.kernels import ivf_scan_merge as k_sm
+    from repro_torch.kernels import row_topk as k_rt
     from repro_torch.kernels import topk_merge as k_tm
     from repro_torch.launch.serve import MutationStream
 
@@ -3668,6 +3689,7 @@ def main() -> None:
     # counts its launches with and without the delta stream apart
     counters = {"ivf_scan": (k_scan.ivf_scan, "launches"),
                 "topk_merge": (k_tm.topk_merge, "launches"),
+                "row_topk": (k_rt.row_topk, "launches"),
                 "ivf_scan_merge": (k_sm.ivf_scan_merge, "launches"),
                 "delta_scan": (k_ds.delta_scan, "launches"),
                 "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
@@ -3981,6 +4003,25 @@ def main() -> None:
                         "ivf_scan_merge+delta")
         del q, docs, ids2d, got, want, g, w, dargs
         fused_edges()
+        # row_topk: the benchmark cells' admission (512 queries, 65,536
+        # centroids, N 80) and this script's (B queries, N_CLUSTERS, N
+        # N_PROBE), on the sims of random unit vectors: bit for bit its
+        # plain version and the stable sort
+        for n_q, width, kk in ((512, 65_536, 80), (B, N_CLUSTERS, N_PROBE)):
+            x = unit_sims(n_q, width, dev, seed=width)
+            g = k_rt.row_topk(x, kk)
+            sync()
+            srt = torch.sort(x, dim=1, descending=True, stable=True)
+            for label, w in (("plain", k_rt.row_topk_plain(x, kk)),
+                             ("stable sort", (srt[0][:, :kk],
+                                              srt[1][:, :kk].int()))):
+                if not (torch.equal(g[0].view(torch.int32),
+                                    w[0].view(torch.int32))
+                        and torch.equal(g[1], w[1])):
+                    raise AssertionError(f"row_topk ({n_q} x {width}, k "
+                                         f"{kk}) != its {label}")
+            print(f"row_topk ({n_q} x {width}, k {kk}): bit-equal to its "
+                  f"plain version and the stable sort")
         model_zoo_kernels_vs_plain(ctx)
 
     # -- 3. the main path at the paper's widths -------------------------------
@@ -4018,13 +4059,31 @@ def main() -> None:
     reset_launches()
     with phase("serve"):
         torch.cuda.reset_peak_memory_stats(dev)
-        sync()
-        t0 = time.perf_counter()
-        rep = ws.serve(queries)
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1000
-        read_launches("serve (WaveScheduler, fused)", ["ivf_scan_merge"],
-                      absent=["ivf_scan_merge+delta", "delta_scan"])
+        # each admission ranks its queries' centroids by one row_topk
+        admits = []
+        admit = serving._admit
+
+        def counted_admit(*args):
+            admits.append(args[2].shape[0])
+            return admit(*args)
+
+        serving._admit = counted_admit
+        try:
+            sync()
+            t0 = time.perf_counter()
+            rep = ws.serve(queries)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1000
+        finally:
+            serving._admit = admit
+        counts = read_launches("serve (WaveScheduler, fused)",
+                               ["ivf_scan_merge", "row_topk"],
+                               absent=["ivf_scan_merge+delta", "delta_scan"])
+        if counts["row_topk"] != len(admits):
+            raise AssertionError(f"{counts['row_topk']} row_topk launches "
+                                 f"for {len(admits)} admissions")
+        print(f"serve: {len(admits)} admissions of {min(admits)} to "
+              f"{max(admits)} queries, one row_topk launch each")
         served = np.stack([rep.results[i] for i in range(N_QUERIES)])
         probes = np.array([rep.probes[i] for i in range(N_QUERIES)])
         summ = metrics.summarize(served, probes, exact, corpus.relevant,
@@ -4516,6 +4575,32 @@ def main() -> None:
         rows.append(topk_merge_row(
             "topk_merge (live pair width)", run_s, run_i, wide_s, wide_i,
             live_pair_launches))
+        # row_topk at a merge's width (k + list_pad, the plain per-probe
+        # merge's), the benchmark cells' admission and a brute_force width
+        # of the tests (tests/test_torch_distributed_ivf.py's 8,000 docs)
+        for name, n_q, width, kk in (
+                ("row_topk (merge width)", B, K + LIST_PAD, K),
+                ("row_topk", 512, 65_536, 80),
+                ("row_topk (brute_force width)", B, 8_000, 10)):
+            x = unit_sims(n_q, width, dev, seed=width + 1)
+            g = k_rt.row_topk(x, kk)
+            sync()
+            w = k_rt.row_topk_plain(x, kk)
+            if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+                raise AssertionError(f"{name}: not bit-equal")
+            rows.append(dict(
+                name=name, counter="row_topk", route="cuda",
+                source="src/repro_torch/csrc/row_topk.cu",
+                replaces="none: core/ivf.py:top_k's stable sort "
+                         "(lax.top_k in the reference)",
+                max_abs_err=0.0,
+                ms=time_call(name, lambda: k_rt.row_topk(x, kk), 50,
+                             profiled=True),
+                plain_ms=time_call(f"{name} plain",
+                                   lambda: k_rt.row_topk_plain(x, kk), 20),
+                bound=bound(n_q * width * 4 + n_q * kk * 8, 0),
+                library_ms=time_call(f"{name}: torch.topk",
+                                     lambda: torch.topk(x, kk, dim=1), 20)))
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
                                  rs_params["table"],
                                  rs_params["linear_table"], rs_rows)

@@ -27,6 +27,7 @@ from repro_torch.core.features import (FeatureExtras, base_columns,
                                        feature_matrix)
 from repro_torch.core.policies import Policy, policy_step
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import row_topk as _rt
 from repro_torch.kernels.delta_scan import delta_scan_plain
 from repro_torch.kernels.ivf_scan import score_rows
 
@@ -207,10 +208,18 @@ class SearchResult(NamedTuple):
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` along the last axis: ties go to the lower position
-    (``torch.topk`` promises no tie order)."""
-    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return s[..., :k], i[..., :k].to(torch.int32)
+    """``lax.top_k`` along the last axis of a float32 tensor: ties to the
+    lower position (``torch.topk`` promises no tie order), and the two
+    part only on the sign of a zero or a NaN (``kernels/row_topk.py``).
+    On the card the ``row_topk`` kernel ranks, and raises where it cannot
+    run; elsewhere (the CPU, the dry run's meta tensors) the stable sort.
+    A row narrower than ``k`` is kept whole."""
+    if not x.is_cuda:
+        return _rt.row_topk_plain(x, k)
+    w = x.shape[-1]
+    k = min(k, w)
+    s, i = kops.row_topk(x.reshape(-1, w), k)
+    return s.reshape(*x.shape[:-1], k), i.reshape(*x.shape[:-1], k)
 
 
 def centroid_rank(index: IVFIndex, queries: torch.Tensor, n_rank: int, *,

@@ -16,7 +16,9 @@
 // k-th into a survivor buffer, and merge the buffer by rank (`merge`).
 // ivf_scan_merge runs these helpers on its 8 consumer warps (named
 // barrier 1), topk_merge on its whole block (__syncthreads): each passes
-// its thread count and its barrier.
+// its thread count and its barrier.  row_topk packs its (value, position)
+// records with the same key map and words and compacts with `compact`,
+// but sorts its larger survivor buffer by a bitonic network of its own.
 #pragma once
 
 namespace packed {

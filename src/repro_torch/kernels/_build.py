@@ -32,6 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ivf_scan": [_P] * 4 + [_I] * 4 + [_P],
     "topk_merge": [_P] * 6 + [_I] * 5 + [_P],
+    "row_topk": [_P] * 3 + [_I] * 3 + [_P],
     "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
     "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
     "flash_attention_f32": [_P] * 4 + [_I] * 5 + [_P],

@@ -22,6 +22,7 @@ from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_scan as _scan
 from repro_torch.kernels import ivf_scan_merge as _sm
+from repro_torch.kernels import row_topk as _rt
 from repro_torch.kernels import topk_merge as _tm
 
 
@@ -97,6 +98,12 @@ def topk_merge(scores, ids, new_scores, new_ids,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return _tm.topk_merge(scores.contiguous(), ids.contiguous(),
                           new_scores.contiguous(), new_ids.contiguous(), k)
+
+
+def row_topk(x, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, W) float32 -> each row's first k values and int32 positions,
+    in a stable descending sort's order (``core.ivf.top_k``)."""
+    return _rt.row_topk(x.contiguous(), k)
 
 
 def embedding_bag(table, ids) -> torch.Tensor:

@@ -9,10 +9,11 @@ while it still carries ``NEW_MARK``.  ``NEW_MARK`` (bit 30) flags ids
 that entered on the current probe; the empty/tombstone id ``-1`` is
 never marked.
 
-The CUDA side of these rules is ``csrc/packed_sort.cuh``; all three
-kernels share it.  The plain sort here packs each record into one
-int64, ``(key << 32) | (idw + 2**31)``: the bias keeps ``-1`` below
-every real id in the low word.  Records are totally ordered and equal
+The CUDA side of these rules is ``csrc/packed_sort.cuh``; the three
+merging kernels share it, and ``row_topk`` its key map and words.  The
+plain sort here packs each record into one int64, ``(key << 32) |
+(idw + 2**31)``: the bias keeps ``-1`` below every real id in the low
+word.  Records are totally ordered and equal
 records are identical, so any correct sort — this one or the bitonic
 network of the kernels — gives the same output bit for bit.
 """

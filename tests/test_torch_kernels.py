@@ -31,8 +31,9 @@ T = torch.from_numpy
 def ref():
     """The reference kernels (Pallas interpret mode on the CPU)."""
     jnp = pytest.importorskip("jax.numpy")
+    from jax import lax
     from repro.kernels import ops, ref as oracles
-    return types.SimpleNamespace(jnp=jnp, ops=ops, oracles=oracles)
+    return types.SimpleNamespace(jnp=jnp, lax=lax, ops=ops, oracles=oracles)
 
 
 def _assert_scores(got, want, atol=1e-5):
@@ -900,3 +901,156 @@ def test_gpu_extract_features_are_batch_independent(cuda):
     for f in ("topk_ids", "probes", "topk_scores"):
         assert torch.equal(getattr(fused, f), getattr(pair, f)), f
     assert (fused.probes == tau).any() and (fused.probes > tau).any()
+
+
+# -- row_topk: core.ivf.top_k's ranking ---------------------------------------
+
+ROW_TOPK_KINDS = ["ties", "specials", "gaussian", "ascending"]
+# (W, k): the widths 1, a merge's k + L, an odd width (no 16-byte loads,
+# unaligned row starts) and the admission's centroid count, at every k of
+# {1, 80, 100, W} that W holds
+ROW_TOPK_SHAPES = [(w, k) for w in (1, 356, 4097, 65_536)
+                   for k in sorted({1, 80, 100, w}) if k <= w]
+
+
+def row_topk_case(kind, w, rows=None):
+    """A (rows, w) float32 matrix of a named kind: ``ties`` draws from 9
+    values, so the k-th rank lies inside a run of equal values;
+    ``specials`` plants NaN, +inf, 40 positives, a run of +0.0 and -0.0
+    long enough to hold ranks 80-100 at W 356, and -inf among negatives;
+    ``ascending`` makes every tile beat the running k-th (the kernel's
+    most merges).  One row at W 65,536, else three (odd-width rows start
+    unaligned)."""
+    rows = rows or (1 if w >= 65_536 else 3)
+    rng = np.random.default_rng([ROW_TOPK_KINDS.index(kind), w, rows])
+    if kind == "ties":
+        return rng.integers(-4, 5, (rows, w)).astype(np.float32)
+    if kind == "gaussian":
+        return rng.normal(size=(rows, w)).astype(np.float32)
+    if kind == "ascending":
+        return np.sort(rng.normal(size=(rows, w)).astype(np.float32), 1)
+    x = -np.abs(rng.normal(size=(rows, w))).astype(np.float32)
+    n_zero = max(w // 4, 120)
+    for r in range(rows):
+        p = rng.permutation(w)
+        fill = [np.nan] * 3 + [np.inf] * 3 + list(
+            np.abs(rng.normal(size=40)).astype(np.float32)) + [
+            0.0 if j % 2 else -0.0 for j in range(n_zero)] + [-np.inf] * 3
+        x[r, p[:len(fill)]] = np.float32(fill)[:w]
+    return x
+
+
+def _lax_top(ref, x, k):
+    """``lax.top_k`` on the port's rule: -0.0 folded onto +0.0 and every
+    NaN made positive (lax ranks by the total order, +0.0 above -0.0 and
+    a negative NaN last); the values read back from ``x`` at its
+    positions."""
+    key = np.where(x == 0, np.float32(0), x)
+    key = np.where(np.isnan(key), np.float32(np.nan), key)
+    v, i = ref.lax.top_k(ref.jnp.asarray(key), k)
+    i = np.asarray(i).astype(np.int32)
+    np.testing.assert_array_equal(np.take_along_axis(key, i, -1),
+                                  np.asarray(v))
+    return T(np.take_along_axis(x, i, -1)), T(i)
+
+
+def _assert_same_bits(got, want):
+    assert got[0].dtype == want[0].dtype and got[1].dtype == want[1].dtype
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w,k", ROW_TOPK_SHAPES)
+@pytest.mark.parametrize("kind", ROW_TOPK_KINDS)
+def test_row_topk_plain_is_lax_top_k(ref, kind, w, k):
+    """On the CPU the wrapper runs its plain version, the stable sort,
+    and core.ivf.top_k takes the wrapper: each is the reference's
+    ``lax.top_k`` bit for bit, on the port's rule for the sign of a zero
+    or a NaN, and launches nothing."""
+    from repro_torch.core.ivf import top_k
+    from repro_torch.kernels import row_topk as t_rt
+
+    x = row_topk_case(kind, w)
+    want = _lax_top(ref, x, k)
+    x = T(x)
+    before = t_rt.row_topk.launches
+    _assert_same_bits(tops.row_topk(x, k), want)
+    _assert_same_bits(t_rt.row_topk_plain(x, k), want)
+    _assert_same_bits(top_k(x, k), want)
+    assert t_rt.row_topk.launches == before
+
+
+def test_row_topk_rule_where_lax_top_k_parts(ref):
+    """The port's order keeps -0.0 and +0.0 equal (ties to the lower
+    position) and puts every NaN above +inf; ``lax.top_k`` ranks +0.0
+    above -0.0 and a negative NaN last.  Elsewhere the two agree."""
+    from repro_torch.core.ivf import top_k
+
+    x = np.float32([-0.0, 1.0, 0.0, -np.nan, -1.0, -0.0, np.inf, np.nan])
+    v, i = top_k(T(x), 8)
+    np.testing.assert_array_equal(i.numpy(), [3, 7, 6, 1, 0, 2, 5, 4])
+    np.testing.assert_array_equal(np.signbit(v.numpy()),
+                                  np.signbit(x[i.numpy()]))
+    lv, li = ref.lax.top_k(ref.jnp.asarray(x), 8)
+    np.testing.assert_array_equal(np.asarray(li), [7, 6, 1, 2, 0, 5, 4, 3])
+
+
+@pytest.mark.parametrize("bad", ["k_above_w", "k_zero", "float64", "1d"])
+def test_row_topk_wrapper_raises(bad):
+    from repro_torch.kernels import row_topk as t_rt
+
+    x = T(row_topk_case("gaussian", 356))
+    args = {"k_above_w": (x, 357), "k_zero": (x, 0),
+            "float64": (x.double(), 80), "1d": (x[0], 80)}[bad]
+    with pytest.raises(ValueError, match="row_topk"):
+        t_rt.row_topk(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k", ROW_TOPK_SHAPES)
+@pytest.mark.parametrize("kind", ROW_TOPK_KINDS)
+def test_gpu_row_topk_is_the_stable_sort(cuda, kind, w, k):
+    """Values and positions bit for bit the card's stable sort's first k
+    (and the CPU's), one launch a call, core.ivf.top_k included; where
+    the running top-k does not fit the card's shared memory (k = W =
+    65,536) the wrapper and top_k raise and launch nothing."""
+    from repro_torch.core.ivf import top_k
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import row_topk as t_rt
+
+    x_cpu = T(row_topk_case(kind, w))
+    x = x_cpu.to(cuda)
+    want = t_rt.row_topk_plain(x, k)
+    _assert_same_bits([t.cpu() for t in want], t_rt.row_topk_plain(x_cpu, k))
+    before = t_rt.row_topk.launches
+    if t_rt.smem_bytes(k) > _build.max_shared_optin(x.device):
+        for call in (t_rt.row_topk, top_k):
+            with pytest.raises(ValueError, match="the card allows"):
+                call(x, k)
+        assert t_rt.row_topk.launches == before
+        return
+    got = t_rt.row_topk(x, k)
+    torch.cuda.synchronize()
+    assert t_rt.row_topk.launches == before + 1
+    _assert_same_bits(got, want)
+    _assert_same_bits(top_k(x, k), want)
+
+
+@pytest.mark.gpu
+def test_gpu_row_topk_unaligned_start_and_empty_batch(cuda):
+    """A row width that is a multiple of 4 whose matrix starts 4 bytes
+    past a 16-byte boundary takes the scalar loads; 0 rows launch
+    nothing."""
+    from repro_torch.kernels import row_topk as t_rt
+
+    x = T(row_topk_case("ties", 4096, rows=5)).to(cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xs = buf[1:].view(5, 4096)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 4
+    for k in (1, 80, 4096):
+        _assert_same_bits(t_rt.row_topk(xs, k), t_rt.row_topk_plain(x, k))
+    before = t_rt.row_topk.launches
+    v, i = t_rt.row_topk(x[:0], 80)
+    assert v.shape == (0, 80) and i.shape == (0, 80)
+    assert t_rt.row_topk.launches == before

@@ -8,7 +8,8 @@ import jax.numpy as jnp
 
 from repro.kernels import sort as jsort
 from repro_torch.kernels import sort as tsort
-from test_torch_kernels import TOPK_CASES, topk_case
+from test_torch_kernels import (ROW_TOPK_KINDS, ROW_TOPK_SHAPES, TOPK_CASES,
+                                row_topk_case, topk_case)
 
 _EDGE = np.float32([0.0, -0.0, 1e-44, -1e-44, 1e-40, -1e-40, np.inf,
                     -np.inf, -1e30, -1e29, 1e30, -3.5, 3.5])
@@ -276,3 +277,99 @@ def test_topk_merge_kernel_model_catches_faults(fault, name):
     assert any(not np.array_equal(
         _topk_merge_model(s[r], i[r], ns[r], ni[r], k, **{fault: True})[1],
         pi[r].numpy()) for r in range(len(s)))
+
+
+# -- csrc/row_topk.cu's algorithm, modelled on the CPU ------------------------
+
+
+def _row_records(x, *, fold_zero=True, low_first=True):
+    """The kernel's words: NaN on the top key, -0.0 on +0.0's, the
+    position word ~pos (a lower position is a larger word).  The two
+    flags off are faults the tests below must catch."""
+    x = np.where(x == 0, np.float32(0), x) if fold_zero else x
+    keys = tsort.score_to_key(torch.from_numpy(
+        np.ascontiguousarray(x, np.float32))).numpy()
+    keys = np.where(np.isnan(x), np.int32(np.iinfo(np.int32).max), keys)
+    pos = np.arange(len(x), dtype=np.int32)
+    return _words(keys, ~pos if low_first else pos)
+
+
+def _row_topk_model(x, k, *, threads=256, per=8, vec=4, buf=512,
+                    **faults):
+    """One row of the row_topk kernel on int64 words: passes of
+    ``threads * per`` columns, thread t holding columns 4t..4t+3 of each
+    1,024 of a pass; a pass's survivors (above the running k-th) all
+    written to a ``buf`` buffer if they fit, else the buffer merged first
+    and the pass filtered again, and if they still do not fit the pass
+    compacted ``threads`` columns at a time, merging when the next could
+    overflow or, until k records are held, when k are buffered; a merge
+    at the end.  The records are unique, so any exact merge is the
+    kernel's.  Values are read back at the kept positions."""
+    w = len(x)
+    words = _row_records(x, **faults)
+    run = np.full(k, _FREE, np.int64)
+    kept = np.zeros(0, np.int64)
+    held = 0
+
+    def merge(run, kept):
+        return np.sort(np.concatenate([run, kept]))[::-1][:k]
+
+    for c0 in range(0, w, threads * per):
+        cols = np.arange(c0, min(c0 + threads * per, w))
+        for merged in (False, True):
+            surv = words[cols][words[cols] > run[k - 1]]
+            if len(kept) + len(surv) <= buf:
+                kept = np.concatenate([kept, surv])
+                break
+            if len(kept) == 0 or merged:
+                # column i of every thread: i // vec selects the 1,024,
+                # i % vec the column within a thread's 4
+                for i in range(per):
+                    sub = cols[((cols - c0) // (threads * vec) == i // vec)
+                               & ((cols - c0) % vec == i % vec)]
+                    if len(kept) + threads > buf \
+                            or (held < k and len(kept) >= k):
+                        held += len(kept)
+                        run, kept = merge(run, kept), kept[:0]
+                    kept = np.concatenate(
+                        [kept, words[sub][words[sub] > run[k - 1]]])
+                break
+            held += len(kept)
+            run, kept = merge(run, kept), kept[:0]
+    if len(kept):
+        run = merge(run, kept)
+    idw = ((run & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
+    pos = ~idw if faults.get("low_first", True) else idw
+    return x[pos], pos
+
+
+@pytest.mark.parametrize("w,k", ROW_TOPK_SHAPES)
+@pytest.mark.parametrize("kind", ROW_TOPK_KINDS)
+def test_row_topk_kernel_model_is_the_stable_sort(kind, w, k):
+    """csrc/row_topk.cu's records, filter and merges give the stable
+    sort's first k bit for bit (values and positions), NaN, +-0.0 and
+    ties to the lower position included."""
+    from repro_torch.kernels import row_topk as t_rt
+
+    x = row_topk_case(kind, w)
+    ws, wi = t_rt.row_topk_plain(torch.from_numpy(x), k)
+    for r in range(len(x)):
+        ms, mi = _row_topk_model(x[r], k)
+        np.testing.assert_array_equal(mi, wi[r].numpy())
+        np.testing.assert_array_equal(ms.view(np.int32),
+                                      ws[r].numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("fault,kind", [("fold_zero", "specials"),
+                                        ("low_first", "ties"),
+                                        ("low_first", "specials")])
+def test_row_topk_kernel_model_catches_faults(fault, kind):
+    """The cases above would catch -0.0 keyed below +0.0 and ties given
+    to the higher position."""
+    from repro_torch.kernels import row_topk as t_rt
+
+    x = row_topk_case(kind, 356)
+    _, wi = t_rt.row_topk_plain(torch.from_numpy(x), 100)
+    assert any(not np.array_equal(_row_topk_model(x[r], 100,
+                                                  **{fault: False})[1],
+                                  wi[r].numpy()) for r in range(len(x)))
