@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -40,6 +41,7 @@ class Corpus:
     list_pad: int
     id_rows: torch.Tensor     # (n_docs,) int64 row of each doc id
     pool: torch.Tensor        # (P, d) f32 unit queries
+    scale: Optional[torch.Tensor] = None   # (L,) f32 noise std of each list
 
     @property
     def n_docs(self) -> int:
@@ -117,7 +119,7 @@ def make(cfg: dict, pool_size: int, seed: int, dev) -> Corpus:
     id_rows[perm] = live_rows
     pool = queries(cfg, pool_size, centres, docs, live_rows, sd, g, dev)
     return Corpus(centres, docs, doc_ids, offsets.to(torch.int32),
-                  sizes.to(torch.int32), pad, id_rows, pool)
+                  sizes.to(torch.int32), pad, id_rows, pool, scale)
 
 
 def queries(cfg, m, centres, docs, live_rows, sd, g, dev) -> torch.Tensor:

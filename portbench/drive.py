@@ -7,6 +7,22 @@ A mix's ``loop`` is ``closed``: back-to-back ``serve()`` calls of
 is counted whole.  An open loop (arrivals at a fixed rate, latency from
 the due time) is left for the cell that needs it (PERF.md).
 
+A mix may also carry a ``mutations`` block (``adds_per_wave``,
+``deletes_per_wave``, ``plants_per_wave`` and their ``source``): it
+makes a live cell, whose configuration has a ``live`` block
+(``delta_cap``, ``merge_every``).  The harness then serves the
+program's live index and hands the load the mutation stream
+(``mutations.Stream``); the ``serve`` it is given passes the stream to
+the program as its ``on_wave`` hook, which writes to the index after
+every wave.  Each call then carries the stream's record of it
+(``Call.mutations``: its first wave, waves, plants, adds, deletes,
+merges and forced merges, and host ms in the hook and in
+``merge_delta``).  The check holds a live run to what the stream
+published: no answer holds an id deleted before its last probe's wave,
+every query admitted after its plant was published holds the plant
+while it lives, and the waves of each call are those the scheduler's
+admission rule gives for its probe counts (``judge.py``).
+
 Reports are kept as they come; nothing is read from them inside the
 window.
 """
@@ -14,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -25,6 +41,7 @@ class Call:
     t_done: float                 # host clock at its return
     pool_idx: np.ndarray          # (nq,) int64 pool rows served
     report: object                # the program's ServeReport
+    mutations: Optional[dict] = None   # the stream's record of the call
 
 
 @dataclasses.dataclass
@@ -40,16 +57,18 @@ class Window:
 
 class Load:
     """Drives ``serve(pool_rows) -> report`` with one traffic mix.  The
-    pool position carries over from window to window."""
+    pool position carries over from window to window.  With a
+    ``stream`` (a live cell), each call begins a record of it there."""
 
     def __init__(self, traffic: dict, pool_size: int,
-                 serve: Callable, sync: Callable[[], None]):
+                 serve: Callable, sync: Callable[[], None], stream=None):
         if traffic["loop"] != "closed":
             raise ValueError(f"unknown loop {traffic['loop']!r}")
         self.traffic = traffic
         self.pool_size = pool_size
         self.serve = serve
         self.sync = sync
+        self.stream = stream
         self.next_q = 0
 
     def _take(self, n: int) -> np.ndarray:
@@ -58,10 +77,11 @@ class Load:
         return idx
 
     def _call(self, idx: np.ndarray) -> Call:
+        rec = None if self.stream is None else self.stream.begin_call()
         t_send = time.perf_counter()
         rep = self.serve(idx)
         self.sync()
-        return Call(t_send, time.perf_counter(), idx, rep)
+        return Call(t_send, time.perf_counter(), idx, rep, rec)
 
     def window(self, seconds: float) -> Window:
         n = self.traffic["call_queries"]

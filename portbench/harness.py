@@ -1,6 +1,14 @@
 """One run of one cell: set-up, the measured window, the traced window,
 the check against the reference, and the result's line.
 
+A cell whose mix has a ``mutations`` block is live: set-up wraps the
+index in the program's ``LiveIndex``, serves it through an
+``IndexRegistry`` and hands ``serve`` the mutation stream
+(``mutations.Stream``) as its ``on_wave`` hook; it then drops its own
+handles on the documents, so that the program holds the only copy of
+the corpus on the card, and the check makes the corpus again from the
+seed once the program's objects are gone.
+
 ``run.py`` calls :func:`run` after it has seen the cards the cell
 needs; the tests call it on the CPU at a tiny configuration.
 """
@@ -16,7 +24,7 @@ import numpy as np
 import torch
 
 from . import corpus as corpus_mod
-from . import drive, judge, spec, trace
+from . import drive, judge, mutations, spec, trace
 from .reference import counts
 
 # the traced window: at most this long, and no longer than the window
@@ -45,7 +53,9 @@ def host_note() -> str:
 
 @dataclasses.dataclass
 class Run:
-    """What the metric readers read (``portbench/metrics/*.py``)."""
+    """What the metric readers read (``portbench/metrics/*.py``).  In a
+    live cell each call of a window carries the stream's record of it
+    (``drive.Call.mutations``)."""
     loop: str
     setup_s: float
     window: drive.Window
@@ -87,17 +97,29 @@ def needed_bounds(c: corpus_mod.Corpus, cfg: dict, w: drive.Window
 @dataclasses.dataclass
 class Bench:
     """A cell set up: its corpus on the device, the program's scheduler
-    over it, and the generator of its traffic."""
+    over it, and the generator of its traffic; in a live cell, the
+    mutation stream (and a corpus without its documents, which the
+    program holds)."""
     cell: spec.Cell
     corpus: corpus_mod.Corpus
     sched: object
     load: drive.Load
     sums: tuple
     sync: object
+    stream: Optional[mutations.Stream] = None
 
     @property
     def cfg(self) -> dict:
         return self.cell.config
+
+    def release(self) -> None:
+        """Drop the program's objects once the windows have closed; in
+        a live cell, free what they held on the card as well."""
+        self.sched = self.load = None
+        if self.stream is not None:
+            self.stream.release()
+            if self.corpus.pool.device.type == "cuda":
+                torch.cuda.empty_cache()
 
 
 def setup(root: Path, workload: str, seed: int, dev: torch.device
@@ -127,10 +149,12 @@ def setup(root: Path, workload: str, seed: int, dev: torch.device
     sums = corpus_mod.checksum(c)
     index = IVFIndex(c.centroids, c.docs, c.doc_ids, c.offsets, c.sizes,
                      c.list_pad)
-    sched = WaveScheduler(
-        index, wave_size=cfg["wave_size"], chunk=cfg["chunk"], k=cfg["k"],
-        n_probe=cfg["n_probe"], delta=cfg["patience_delta"],
-        phi=cfg["patience_phi"], use_fused=True)
+    knobs = dict(wave_size=cfg["wave_size"], chunk=cfg["chunk"], k=cfg["k"],
+                 n_probe=cfg["n_probe"], delta=cfg["patience_delta"],
+                 phi=cfg["patience_phi"], use_fused=True)
+    if "mutations" in mix:
+        return _setup_live(cell, c, index, knobs, sums, seed, dev, sync)
+    sched = WaveScheduler(index, **knobs)
 
     def serve(idx: np.ndarray):
         return sched.serve(c.pool[torch.as_tensor(idx, device=dev)])
@@ -142,6 +166,46 @@ def setup(root: Path, workload: str, seed: int, dev: torch.device
     return Bench(cell, c, sched, load, sums, sync)
 
 
+# warm-up rounds of a live cell at most, while none has merged yet
+LIVE_WARMUP_ROUNDS = 16
+
+
+def _setup_live(cell: spec.Cell, c: corpus_mod.Corpus, index, knobs: dict,
+                sums: tuple, seed: int, dev: torch.device, sync) -> Bench:
+    """The live path of :func:`setup`: the program's live index and
+    registry under the scheduler, the mutation stream as its hook, and
+    warm-up until the stream has merged once (where it merges)."""
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.index.live import LiveIndex
+    from repro_torch.index.registry import IndexRegistry, version_of
+
+    cfg, mix = cell.config, cell.traffic
+    live = LiveIndex(index, delta_cap=cfg["live"]["delta_cap"],
+                     align=cfg["align"])
+    reg = IndexRegistry(version_of(live))
+    sched = WaveScheduler(index, registry=reg, **knobs)
+    stream = mutations.Stream(live, reg, version_of, c, cfg, mix, seed)
+    del index, live, reg
+    # the program holds the documents from here on
+    c = dataclasses.replace(c, docs=None, doc_ids=None, id_rows=None)
+    pool = c.pool
+
+    def serve(idx: np.ndarray):
+        return sched.serve(pool[torch.as_tensor(idx, device=dev)],
+                           on_wave=stream)
+
+    load = drive.Load(mix, pool.shape[0], serve, sync, stream=stream)
+    t = time.perf_counter()
+    for _ in range(LIVE_WARMUP_ROUNDS):
+        load.warmup()
+        if stream.merges() or not cfg["live"]["merge_every"]:
+            break
+    log(f"warm-up {mix['warmup']} x {len(stream.calls)}: "
+        f"{time.perf_counter() - t:.3f} s, {stream.wave} waves, "
+        f"{stream.merges()} merges")
+    return Bench(cell, c, sched, load, sums, sync, stream)
+
+
 def check(bench: Bench, calls, seed: int, control: bool = False,
           explain: bool = False, every_query: bool = False) -> dict:
     """The numbers compared for the program's answers (``program``);
@@ -150,15 +214,14 @@ def check(bench: Bench, calls, seed: int, control: bool = False,
     reference, explained (``mismatches``, ``judge.explain``).  With
     ``every_query``, one answer of each query served is judged in place
     of the configuration's sample."""
+    if bench.stream is not None:
+        return _check_live(bench, calls, seed, control, explain,
+                           every_query)
     c, cfg = bench.corpus, bench.cfg
     chk = cfg["check"]
     numbers = {"missing": judge.missing(calls),
                "inputs_changed": int(corpus_mod.checksum(c) != bench.sums)}
-    n, longest = chk["sample"], chk["longest"]
-    if every_query:
-        n = longest = np.unique(np.concatenate(
-            [x.pool_idx for x in calls])).shape[0]
-    ans = judge.sample(calls, n, longest, seed)
+    ans = judge.sample(calls, *_sample_size(chk, calls, every_query), seed)
     ref, inv = judge.reference_of(c, cfg, ans.pool_idx)
     numbers.update(judge.compare(c, cfg, ans, ref, inv))
     out = {"program": numbers}
@@ -167,6 +230,56 @@ def check(bench: Bench, calls, seed: int, control: bool = False,
         out["control"] = judge.compare(c, cfg, ctl, ref, inv)
     if explain:
         out["mismatches"] = judge.explain(c, cfg, ans, ref, inv)
+    return out
+
+
+def _sample_size(chk: dict, calls, every_query: bool):
+    if every_query:
+        n = np.unique(np.concatenate([x.pool_idx for x in calls])).shape[0]
+        return n, n
+    return chk["sample"], chk["longest"]
+
+
+def _check_live(bench: Bench, calls, seed: int, control: bool,
+                explain: bool, every_query: bool) -> dict:
+    """:func:`check` for a live cell, after :meth:`Bench.release`: the
+    corpus made again from the seed (its checksum and the tensors the
+    harness kept against set-up's), the stream's mutations regenerated
+    from its log, the schedule replayed, every answer held to the
+    stream, and the sample judged against ``reference/ivf_live.py``."""
+    kept, cfg, mix = bench.corpus, bench.cfg, bench.cell.traffic
+    dev = kept.pool.device
+    c = corpus_mod.make(cfg, mix["pool"], seed, dev)
+    same = all(torch.equal(getattr(kept, f), getattr(c, f)) for f in
+               ("centroids", "offsets", "sizes", "pool", "scale"))
+    bench.corpus = c
+    numbers = {"missing": judge.missing(calls),
+               "inputs_changed": int(corpus_mod.checksum(c) != bench.sums
+                                     or not same)}
+    ov, plant_id, plant_row = mutations.overlay(
+        bench.stream.log, c.centroids, c.scale, c.pool)
+    admits, numbers["schedule_mismatch"] = judge.schedule(calls, cfg)
+    numbers.update(judge.held_to_stream(
+        calls, admits, cfg, ov, plant_id.cpu().numpy(),
+        plant_row.cpu().numpy()))
+    ans = judge.sample(calls, *_sample_size(cfg["check"], calls,
+                                            every_query), seed)
+    ans.admit = np.array([admits[i][j] for i, j in ans.src], np.int64)
+    ref, inv = judge.reference_of(c, cfg, ans.pool_idx, admit=ans.admit,
+                                  overlay=ov)
+    numbers.update(judge.compare(c, cfg, ans, ref, inv, ov))
+    st = bench.stream
+    numbers.update(mutation_waves=st.wave, merges=len(st.log.merges),
+                   forced_merges=len(st.log.forced),
+                   added=ov.vecs.shape[0],
+                   deletes=int(sum(x.size for x in st.log.deleted)))
+    out = {"program": numbers}
+    if control:
+        ctl = judge.control_answers(c, cfg, ans.pool_idx, admit=ans.admit,
+                                    overlay=ov)
+        out["control"] = judge.compare(c, cfg, ctl, ref, inv, ov)
+    if explain:
+        out["mismatches"] = judge.explain(c, cfg, ans, ref, inv, ov)
     return out
 
 
@@ -186,6 +299,12 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         f"queries, {sum(x.report.waves for x in win.calls)} waves, "
         f"{sum(sum(x.report.probes.values()) for x in win.calls) / served:.4f}"
         f" probes a query; {note}")
+    if bench.stream is not None:
+        tot = {key: sum(x.mutations[key] for x in win.calls)
+               for key in mutations.RECORD_KEYS}
+        log("window's mutations: " + ", ".join(
+            f"{key} {v:.3f}" if isinstance(v, float) else f"{key} {v}"
+            for key, v in tot.items()))
     result_run = Run(mix["loop"], setup_s, win)
     if traced:
         tw, tr = trace.traced(
@@ -195,7 +314,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool,
         log(f"traced window: {tr.window_s:.3f} s, busy {tr.busy_s:.6f} s, "
             f"{len(tw.calls)} calls, reduced in {tr.reduce_s:.3f} s")
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    bench.sched = bench.load = None
+    bench.release()
     calls = win.calls + (result_run.traced.calls if traced else [])
 
     # -- the check, once the windows have closed ---------------------------

@@ -40,7 +40,7 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         bench = harness.setup(ROOT, args.workload, seed, dev)
         win = bench.load.window(args.seconds)
-        bench.sched = bench.load = None
+        bench.release()
         t = time.perf_counter()
         res = harness.check(bench, win.calls, seed, control=True,
                             explain=args.explain,

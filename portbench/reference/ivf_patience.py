@@ -94,6 +94,16 @@ def _merge(run_s, run_i, new_s, new_i, k):
     return s.gather(1, by_s), i.gather(1, by_s), old.gather(1, by_s)
 
 
+def patience(ctr, old, run_i, h: int, k: int, phi: float):
+    """The patience counter after probe ``h``: one more where ``h >= 1``
+    and phi = 100 kept / k >= Phi, else 0; ``kept`` counts the entries of
+    the running top-k before the probe that hold a document and are
+    still in it (``old`` from :func:`_merge`)."""
+    kept = (old & (run_i >= 0)).sum(1)
+    ok = (h >= 1) & (100.0 * kept / k >= phi)
+    return torch.where(ok, ctr + 1, 0)
+
+
 def search(queries, docs, doc_ids, offsets, sizes, centroids, *, k: int,
            n_probe: int, delta: int, phi: float, list_pad: int,
            tf32: bool = False, block: int = 256) -> Reference:
@@ -125,9 +135,7 @@ def search(queries, docs, doc_ids, offsets, sizes, centroids, *, k: int,
                 sc = torch.where(live, sc, NEG)
                 ids = torch.where(live, ids, -1)
                 run_s, run_i, old = _merge(run_s, run_i, sc, ids, k)
-                kept = (old & (run_i >= 0)).sum(1)
-                ok = (h >= 1) & (100.0 * kept / k >= phi)
-                ctr = torch.where(ok, ctr + 1, 0)
+                ctr = patience(ctr, old, run_i, h, k, phi)
                 exit_now = ~done & ((ctr >= delta) | (h + 1 >= n_probe))
                 probes = torch.where(exit_now, h + 1, probes)
                 done |= exit_now
@@ -161,10 +169,16 @@ def margins(queries, docs, doc_ids, offsets, sizes, centroids, *, k: int,
     s = r.scores
     boundary = torch.where(torch.isinf(s[:, :, k]), float("inf"),
                            s[:, :, k - 1] - s[:, :, k])
+    return Margins(boundary, centroid_gaps(queries, centroids, n_probe))
+
+
+def centroid_gaps(queries, centroids, n_probe: int) -> torch.Tensor:
+    """(B, n_probe) float64: each probe's centroid score less the next
+    list's."""
     with exact_f32():
         sims = queries.double() @ centroids.double().T
     top = torch.topk(sims, min(n_probe + 1, sims.shape[1]), dim=1).values
-    return Margins(boundary, (top[:, :-1] - top[:, 1:])[:, :n_probe])
+    return (top[:, :-1] - top[:, 1:])[:, :n_probe]
 
 
 def doc_scores(queries, docs, id_rows, ids) -> torch.Tensor:

@@ -11,6 +11,12 @@ a file of its own, found by name:
 
 So a later cell, mix or metric is added as files and entries, and no
 file here changes.
+
+A configuration may carry a ``live`` block (``delta_cap``, and
+``merge_every`` waves, 0 for no scheduled merge) and a mix a
+``mutations`` block (``adds_per_wave``, ``deletes_per_wave``,
+``plants_per_wave`` and a ``source``): a cell of such a mix on such a
+configuration is live (``mutations.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +33,9 @@ SOURCES_E2E = {"host_clock", "device_trace"}
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
             "end_to_end", "per_layer"}
+MUTATION_COUNTS = ("adds_per_wave", "deletes_per_wave", "plants_per_wave")
+# the numbers a live configuration's check holds at limit 0
+LIVE_LIMITS = ("deleted_returned", "acked_add_missed", "schedule_mismatch")
 
 
 @dataclasses.dataclass
@@ -79,11 +88,50 @@ def reader(root: Path, metric: str) -> Callable[[object], Optional[float]]:
     return mod.read
 
 
+def _count(x, least: int = 0) -> bool:
+    return isinstance(x, int) and not isinstance(x, bool) and x >= least
+
+
+def live_problems(name: str, cfg: dict, mix: dict) -> List[str]:
+    """What breaks the rules of a live cell ``name``: a mix with
+    ``mutations`` on a configuration without a ``live`` block, a live
+    configuration under a mix without them, a count that is no whole
+    number or is negative, and a live configuration whose check has no
+    limit 0 on the numbers that hold a live run to its stream."""
+    out = []
+    muts, live = mix.get("mutations"), cfg.get("live")
+    if muts is not None and live is None:
+        out.append(f"{name}: mix with mutations on config {cfg.get('name')}"
+                   f" without a live block")
+    if live is not None and muts is None:
+        out.append(f"{name}: live config {cfg.get('name')} under a mix "
+                   f"without mutations")
+    if muts is not None:
+        for key in MUTATION_COUNTS:
+            if not _count(muts.get(key)):
+                out.append(f"{name}: mutations {key} {muts.get(key)!r}")
+        if not muts.get("source"):
+            out.append(f"{name}: mutations without a source")
+    if live is not None:
+        if not _count(live.get("delta_cap"), 1):
+            out.append(f"{name}: live delta_cap {live.get('delta_cap')!r}")
+        if not _count(live.get("merge_every")):
+            out.append(f"{name}: live merge_every "
+                       f"{live.get('merge_every')!r}")
+        limits = cfg.get("check", {}).get("limits", {})
+        for key in LIVE_LIMITS:
+            if limits.get(key) != 0:
+                out.append(f"{name}: live check limit {key} "
+                           f"{limits.get(key)!r}, not 0")
+    return out
+
+
 def problems(root: Path) -> List[str]:
     """What in ``root/BENCHMARK.json`` breaks the harness's rules: names
     and units of the allowed characters, unique names, every file named
-    present, and every cell that reports a per-layer metric reporting
-    the end-to-end metric it ``moves``."""
+    present, every cell that reports a per-layer metric reporting
+    the end-to-end metric it ``moves``, and live cells as
+    :func:`live_problems` says."""
     bench = load_json(root / "BENCHMARK.json")
     out = []
     if set(bench) != TOP_KEYS:
@@ -116,6 +164,12 @@ def problems(root: Path) -> List[str]:
             out.append(f"{w['name']}: traffic file missing")
         if w["chips"] not in (1, 4):
             out.append(f"{w['name']}: chips {w['chips']}")
+        mix = root / "portbench" / "traffic" / f"{w['traffic']}.json"
+        cfg = configs.get(w["config"])
+        if cfg is not None and mix.is_file() \
+                and (root / cfg["file"]).is_file():
+            out += live_problems(w["name"], load_json(root / cfg["file"]),
+                                 load_json(mix))
     for m in bench["end_to_end"] + bench["per_layer"]:
         if not UNIT.match(m["unit"]):
             out.append(f"{m['name']}: bad unit {m['unit']!r}")

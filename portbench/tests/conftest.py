@@ -1,6 +1,7 @@
 """A tiny benchmark root for the CPU tests: ``BENCHMARK.json`` with a
-closed-loop cell over a tiny configuration, beside the repository's own
-metric readers."""
+closed-loop cell over a tiny configuration and a live cell (the same
+corpus under a mutation stream), beside the repository's own metric
+readers."""
 import json
 import shutil
 import sys
@@ -25,40 +26,67 @@ TINY = {
               "limits": {"missing": 0, "inputs_changed": 0, "invalid": 0,
                          "exit_mismatch_pct": 0.25,
                          "gap_share_pct": 0.2}}}
+TINY_LIVE = dict(
+    TINY, name="tiny-live", chunk=1,
+    live={"delta_cap": 256, "merge_every": 8},
+    check=dict(TINY["check"], limits=dict(
+        TINY["check"]["limits"], deleted_returned=0, acked_add_missed=0,
+        schedule_mismatch=0)))
 TRAFFIC = {
     "t-closed": {"loop": "closed", "call_queries": 64, "pool": 256,
-                 "warmup": [64]}}
+                 "warmup": [64]},
+    "t-live": {"loop": "closed", "call_queries": 64, "pool": 256,
+               "warmup": [64],
+               "mutations": {"adds_per_wave": 3, "deletes_per_wave": 4,
+                             "plants_per_wave": 1, "source": "a test"}}}
 
 
 def make_root(root: Path) -> Path:
-    """A benchmark root at ``root`` with the tiny cell ``t-bulk`` and the
-    repository's metric readers."""
+    """A benchmark root at ``root`` with the tiny cells ``t-bulk`` and
+    ``t-live`` and the repository's metric readers."""
     (root / "portbench" / "configs").mkdir(parents=True)
     (root / "portbench" / "traffic").mkdir()
     shutil.copytree(REPO / "portbench" / "metrics",
                     root / "portbench" / "metrics")
-    (root / "portbench" / "configs" / "tiny.json").write_text(
-        json.dumps(TINY))
+    for cfg in (TINY, TINY_LIVE):
+        (root / "portbench" / "configs" / f"{cfg['name']}.json").write_text(
+            json.dumps(cfg))
     for name, mix in TRAFFIC.items():
         (root / "portbench" / "traffic" / f"{name}.json").write_text(
             json.dumps(mix))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    bench["configs"] = [{"name": "tiny", "source": "a test",
-                         "file": "portbench/configs/tiny.json",
-                         "reduced": [], "why": "a test"}]
+    bench["configs"] = [{"name": cfg["name"], "source": "a test",
+                         "file": f"portbench/configs/{cfg['name']}.json",
+                         "reduced": [], "why": "a test"}
+                        for cfg in (TINY, TINY_LIVE)]
     bench["workloads"] = [
         {"name": "t-bulk", "config": "tiny", "traffic": "t-closed",
-         "chips": 1, "why": "closed loop"}]
+         "chips": 1, "why": "closed loop"},
+        {"name": "t-live", "config": "tiny-live", "traffic": "t-live",
+         "chips": 1, "why": "closed loop under a mutation stream"}]
+    cells = ["t-bulk", "t-live"]
     bench["end_to_end"] = [m for m in bench["end_to_end"]
                            if m["name"] == "setup_s"] + [
         {"name": "qps", "unit": "queries/s", "better": "higher",
-         "bound": 0.25, "source": "host_clock", "workloads": ["t-bulk"]}]
-    bench["per_layer"] = [dict(m, workloads=["t-bulk"])
+         "bound": 0.25, "source": "host_clock", "workloads": cells}]
+    bench["per_layer"] = [dict(m, workloads=cells)
                           for m in bench["per_layer"] if m["moves"] == "qps"]
     (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return root
 
 
 @pytest.fixture
-def tiny_root(tmp_path) -> Path:
+def one_thread():
+    """Torch on one intra-op thread, as ``run.py`` sets it: beside other
+    test processes the default pool's spin-waits slow a window's serve
+    calls many times over."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tiny_root(tmp_path, one_thread) -> Path:
     return make_root(tmp_path / "root")

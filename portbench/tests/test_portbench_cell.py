@@ -19,6 +19,9 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
     ("t-bulk", False, {"qps", "setup_s"}),
     ("t-bulk", True, {"wave_ms.bulk", "slot_use_pct.bulk",
                       "probes_per_query.bulk"}),
+    ("t-live", False, {"qps", "setup_s"}),
+    ("t-live", True, {"wave_ms.bulk", "slot_use_pct.bulk",
+                      "probes_per_query.bulk"}),
 ])
 def test_tiny_cell_prints_the_result_line(tiny_root, capsys, workload,
                                           traced, want):
@@ -78,3 +81,20 @@ def test_run_exits_without_a_card_and_prints_nothing(tmp_path):
              "--seed", "1", "--seconds", "1", "--trace", "0"],
             cwd=root, capture_output=True, text=True, timeout=300)
         assert p.returncode != 0 and p.stdout == ""
+
+
+def test_live_setup_leaves_the_documents_to_the_program(tiny_root):
+    """A live cell's harness keeps no handle on the documents once the
+    program holds them; its check makes them again from the seed."""
+    bench = harness.setup(tiny_root, "t-live", 2**31 + 78,
+                          torch.device("cpu"))
+    kept = bench.corpus
+    assert kept.docs is None and kept.doc_ids is None \
+        and kept.id_rows is None
+    assert bench.stream.merges() >= 1          # warm-up merged once
+    win = bench.load.window(0.2)
+    assert all(c.mutations["waves"] == c.report.waves for c in win.calls)
+    bench.release()
+    assert bench.stream.live is None
+    res = harness.check(bench, win.calls, 2**31 + 78)["program"]
+    assert res["inputs_changed"] == 0 and bench.corpus.docs is not None

@@ -13,7 +13,7 @@ import torch
 
 from portbench import corpus, harness, judge
 
-from conftest import REPO, TINY
+from conftest import REPO, TINY, TINY_LIVE
 
 
 def _run(root):
@@ -198,3 +198,76 @@ def test_control_fails_the_star_limits():
     own = judge.Answers(idx, ref.ids[torch.arange(1024), ref.probes - 1]
                         .numpy(), ref.probes.numpy())
     assert not judge.verdict(judge.compare(c, cfg, own, ref, inv), limits)
+
+
+def _live_run(root, seconds=1.0):
+    return harness.run(root, "t-live", 2**31 + 907, seconds, False,
+                       torch.device("cpu"), time.perf_counter())
+
+
+def _failing(out):
+    return sorted(n for n, c in out["checks"].items()
+                  if not c["value"] <= c["limit"])
+
+
+def test_live_sound_run_is_correct(tiny_root):
+    assert _failing(_live_run(tiny_root)) == []
+
+
+def test_scheduler_without_the_registry(tiny_root, monkeypatch):
+    """The scheduler serves the index it was built over and never adopts
+    a published version: it misses the plants and returns deleted ids.
+    Its answers then fall short of the live reference as well (a missed
+    plant is a shortfall at rank 1), but its schedule is sound."""
+    from repro_torch.core import serving
+    real = serving.WaveScheduler.__init__
+
+    def frozen(self, index, **kw):
+        real(self, index, **dict(kw, registry=None))
+
+    monkeypatch.setattr(serving.WaveScheduler, "__init__", frozen)
+    out = _live_run(tiny_root)
+    fails = _failing(out)
+    assert {"acked_add_missed", "deleted_returned"} <= set(fails)
+    assert "schedule_mismatch" not in fails
+
+
+def test_tampered_probe_count(tiny_root, monkeypatch):
+    """One answer of one call of the window reports a wave fewer of
+    probes, where that ends its call a wave earlier by the admission
+    rule: only the schedule fails (one answer in over 400 is under the
+    exit limit's share)."""
+    from portbench import drive
+    from repro_torch.core.serving import WaveScheduler
+    serve, window = WaveScheduler.serve, drive.Load.window
+    chunk = TINY_LIVE["chunk"]
+    tampered, started = [], []
+
+    def tamper(self, queries, **kw):
+        rep = serve(self, queries, **kw)
+        if not started or tampered:
+            return rep
+        n = queries.shape[0]
+        p = np.array([rep.probes[j] for j in range(n)])
+        admit, waves = judge.replay(p, self.w, chunk)
+        for j in np.argsort(-(admit + -(-p // chunk)), kind="stable"):
+            if p[j] <= chunk:
+                continue
+            q = p.copy()
+            q[j] -= chunk
+            if judge.replay(q, self.w, chunk)[1] != waves:
+                rep.probes[int(j)] = int(q[j])
+                tampered.append(int(j))
+                break
+        return rep
+
+    def in_window(self, seconds):
+        started.append(True)
+        return window(self, seconds)
+
+    monkeypatch.setattr(WaveScheduler, "serve", tamper)
+    monkeypatch.setattr(drive.Load, "window", in_window)
+    out = _live_run(tiny_root)
+    assert len(tampered) == 1 and out["attempted"] > 400
+    assert _failing(out) == ["schedule_mismatch"]
+    assert out["checks"]["schedule_mismatch"]["value"] == 1
