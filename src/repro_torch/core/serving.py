@@ -225,6 +225,8 @@ class ServeReport:
     # -- device-to-host reads (each waits for the device's queued work) --
     host_syncs: int = 0         # reads made
     sync_wait_ms: float = 0.0   # host ms spent in them
+    # -- the on_wave hook: host ms spent in it (0.0 without a hook) --
+    hook_ms: float = 0.0
 
     @property
     def degraded_fraction(self) -> float:
@@ -268,7 +270,10 @@ class WaveScheduler:
     merged.  A version of a HIGHER epoch carries other centroids, so the
     scheduler drains: it keeps the pinned version, stops admitting,
     finishes in-flight lanes, and adopts the new epoch once no lane is
-    active.  Every version must lie on the scheduler's device.
+    active.  Every version must lie on the scheduler's device.  The
+    scheduler then keeps no index of its own: the one it was built on
+    serves only to read the device and the probe budget, so a merge
+    that replaces it frees its storage.
 
     ``rebuilder`` (optional, ``repro_torch.index.Rebuilder``): while it
     is armed, the scheduler runs ONE rebuild pipeline stage after each
@@ -297,7 +302,9 @@ class WaveScheduler:
         self.device = index_device(index, device)
         # both paths read blk_l-aligned lists through the kernels
         validate_alignment(index)
-        self.index = index
+        # with a registry every wave reads its pinned version, and a
+        # merge that replaces this index must be able to free it
+        self.index = index if registry is None else None
         self.w = wave_size
         self.chunk = chunk
         self.k = k
@@ -355,7 +362,9 @@ class WaveScheduler:
         Under a torch profiler the call is a ``serve`` span holding
         ``serve.harvest``, ``serve.admit`` and ``serve.advance`` spans,
         and every device-to-host read is a ``serve.sync`` span
-        (``repro_torch.trace``)."""
+        (``repro_torch.trace``); each ``on_wave`` call is a
+        ``serve.hook`` span, and ``ServeReport.hook_ms`` sums its host
+        ms."""
         with span("serve"):
             return self._serve(queries, compact, on_wave)
 
@@ -385,6 +394,7 @@ class WaveScheduler:
         full_cap = torch.full((self.w,), self.n, dtype=torch.int32,
                               device=self.device)
         wave_cost = 0.0                              # EMA of wave ms
+        hook_ms = 0.0
         self._pinned = None if self.registry is None \
             else self.registry.current()
         while True:
@@ -491,7 +501,10 @@ class WaveScheduler:
                                  use_fused=self.use_fused)
             waves += 1
             if on_wave is not None:
-                on_wave(waves)
+                t_hook = time.perf_counter()
+                with span("serve.hook"):
+                    on_wave(waves)
+                hook_ms += 1e3 * (time.perf_counter() - t_hook)
             sample = self._now() - now
             wave_cost = sample if waves == 1 \
                 else 0.5 * wave_cost + 0.5 * sample
@@ -520,4 +533,4 @@ class WaveScheduler:
                            rebuild_ticks=rebuild_ticks,
                            rebuild_throttled=rebuild_throttled,
                            host_syncs=read.count,
-                           sync_wait_ms=read.wait_ms)
+                           sync_wait_ms=read.wait_ms, hook_ms=hook_ms)

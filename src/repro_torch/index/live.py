@@ -35,7 +35,7 @@ index's rows (``merge_delta``, the oracles) runs on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,31 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, check_same_device,
 from repro_torch.index.delta import (DeltaBuffer, Tombstones, _on,
                                      assign_clusters)
 from repro_torch.index.wal import OP_ADD, OP_DELETE, OP_MERGE
+from repro_torch.trace import span
+
+
+#: rows a re-layout moves at a time: beside the old and the new index a
+#: merge holds one such chunk of vectors (2^18 x 768 x 4 B = 0.8 GB)
+RELAYOUT_CHUNK_ROWS = 1 << 18
+
+
+class Rows(NamedTuple):
+    """Rows ``at`` of the tables ``vecs`` and ``ids`` (every row where
+    ``at`` is None), in that order: one source of a re-layout's input,
+    read by index so that it is never gathered whole."""
+    vecs: torch.Tensor
+    ids: torch.Tensor
+    at: Optional[torch.Tensor] = None
+
+    def __len__(self) -> int:
+        return self.vecs.shape[0] if self.at is None else self.at.numel()
+
+    def take(self, table: torch.Tensor, s: int, e: int) -> torch.Tensor:
+        """Input rows ``s:e`` of this source, read from ``table`` (its
+        ``vecs`` or its ``ids``)."""
+        if self.at is None:
+            return table[s:e]
+        return table.index_select(0, self.at[s:e])
 
 
 def relayout(vecs, ids, assign, centroids, *, list_pad: int,
@@ -59,11 +84,19 @@ def relayout(vecs, ids, assign, centroids, *, list_pad: int,
     offsets, ``list_pad`` slack tail) but with fixed centroids and
     caller-provided assignments — the primitive under ``merge_delta``
     and the rebuild-equivalence oracle.  The within-cluster order of
-    ``vecs`` is preserved (stable sort), so ties resolve like the
+    the input is preserved (stable sort), so ties resolve like the
     insertion order the live overlay sees.  ``round_total_to`` pads the
     total row count up to a multiple.  Rows are moved, never rescored:
     a stable sort of the assignments on the device gives each row its
-    destination, and one scatter moves ``vecs`` there.
+    destination.
+
+    The input is ``vecs`` and ``ids``, or, with ``ids`` None, the
+    concatenation of the :class:`Rows` sources that ``vecs`` lists,
+    each read by index where it lies (``merge_delta`` lays out the old
+    index's survivors and the buffer's merged slots so).  Rows move
+    ``RELAYOUT_CHUNK_ROWS`` at a time: beside the new index a re-layout
+    holds one chunk of vectors and a few int64 columns of the input's
+    length.
     """
     if align <= 0:
         raise ValueError(f"align must be positive, got {align}")
@@ -78,9 +111,19 @@ def relayout(vecs, ids, assign, centroids, *, list_pad: int,
     else:
         dev = resolve_device(device)
     centroids = _on(dev, centroids, torch.float32, "centroids")
-    vecs = _on(dev, vecs, torch.float32, "vecs")
-    ids = _on(dev, ids, torch.int32, "ids")
+    if ids is None:
+        sources = list(vecs)
+        check_same_device(dev, "a re-layout's source",
+                          *(t for src in sources for t in src
+                            if t is not None))
+    else:
+        sources = [Rows(_on(dev, vecs, torch.float32, "vecs"),
+                        _on(dev, ids, torch.int32, "ids"))]
     assign = _on(dev, assign, torch.int64, "assign")
+    n = sum(len(src) for src in sources)
+    if n != assign.numel():
+        raise ValueError(f"{n} input rows but {assign.numel()} "
+                         f"assignments")
     c, d = centroids.shape
     sizes_t = torch.bincount(assign, minlength=c)
     sizes = sizes_t.cpu().numpy().astype(np.int32)
@@ -106,8 +149,17 @@ def relayout(vecs, ids, assign, centroids, *, list_pad: int,
     dst += offsets_t[assign]
     sorted_docs = torch.zeros((total, d), dtype=torch.float32, device=dev)
     sorted_ids = torch.full((total,), -1, dtype=torch.int32, device=dev)
-    sorted_docs[dst] = vecs
-    sorted_ids[dst] = ids
+    first, step = 0, RELAYOUT_CHUNK_ROWS
+    for src in sources:
+        for s in range(0, len(src), step):
+            e = min(len(src), s + step)
+            to = dst[first + s: first + e]
+            # each chunk is freed as its copy returns: one at a time
+            sorted_docs.index_copy_(
+                0, to, src.take(src.vecs, s, e).to(torch.float32))
+            sorted_ids.index_copy_(
+                0, to, src.take(src.ids, s, e).to(torch.int32))
+        first += len(src)
     return IVFIndex(centroids, sorted_docs, sorted_ids, offsets_t,
                     torch.as_tensor(sizes, device=dev), list_pad)
 
@@ -201,7 +253,12 @@ class LiveIndex:
 
     def add(self, vecs) -> np.ndarray:
         """Stage new vectors; returns their external doc ids.
-        Raises :class:`DeltaFull` when the buffer is out of slots."""
+        Raises :class:`DeltaFull` when the buffer is out of slots.
+        A ``live.add`` span under a profiler."""
+        with span("live.add"):
+            return self._add(vecs)
+
+    def _add(self, vecs) -> np.ndarray:
         host = None
         if not isinstance(vecs, torch.Tensor):
             # a host payload is logged as given (the reference's bytes)
@@ -222,7 +279,12 @@ class LiveIndex:
         return ids
 
     def delete(self, ids) -> None:
-        """Tombstone documents by external id (idempotent)."""
+        """Tombstone documents by external id (idempotent).  A
+        ``live.delete`` span under a profiler."""
+        with span("live.delete"):
+            self._delete(ids)
+
+    def _delete(self, ids) -> None:
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         bad = ids[(ids < 0) | (ids >= self.next_id)]
         if bad.size:
@@ -252,7 +314,18 @@ class LiveIndex:
         after the surviving docs; entries that would push a list past
         ``list_pad`` spill back into the buffer (the newest of a
         cluster first).  Returns the new version number.
+
+        The new layout is written straight from the old index's
+        surviving rows and the merged slots (:class:`Rows` sources of
+        :func:`relayout`), so a merge holds the old index, the new one
+        and one chunk of rows.  Under a profiler it is a ``live.merge``
+        span holding ``live.merge.layout`` (the re-layout) and
+        ``live.merge.mirrors`` (the host's id -> row array).
         """
+        with span("live.merge"):
+            return self._merge_delta()
+
+    def _merge_delta(self) -> int:
         self._log(OP_MERGE)
         lp = self.index.list_pad
         rows, assign_main = self._main_rows()
@@ -268,17 +341,25 @@ class LiveIndex:
         rank[order] = np.arange(cl.size) - first
         take = rank < lp - fill[cl]
         merged = torch.as_tensor(slots[take], device=self.device)
-        self.index = relayout(
-            torch.cat([self.index.docs[rows], self.delta.vecs[merged]]),
-            torch.cat([self.index.doc_ids[rows], self.delta.ids[merged]]),
-            torch.cat([assign_main, self.delta.assign[merged].long()]),
-            self.index.centroids, list_pad=lp, align=self.align,
-            round_total_to=self.round_total_to)
+        with span("live.merge.layout"):
+            self.index = relayout(
+                self._sources(rows, merged), None,
+                torch.cat([assign_main, self.delta.assign[merged].long()]),
+                self.index.centroids, list_pad=lp, align=self.align,
+                round_total_to=self.round_total_to)
         self.delta.compact_keep(slots[~take])
-        self._refresh_mirrors()
+        with span("live.merge.mirrors"):
+            self._refresh_mirrors()
         self.version += 1
         self.seq += 1
         return self.version
+
+    def _sources(self, rows: torch.Tensor, slots: torch.Tensor
+                 ) -> Tuple[Rows, Rows]:
+        """The main index's ``rows``, then the buffer's ``slots``: a
+        re-layout's input, read where it lies."""
+        return (Rows(self.index.docs, self.index.doc_ids, rows),
+                Rows(self.delta.vecs, self.delta.ids, slots))
 
     # -- read path ----------------------------------------------------------
     def delta_view(self) -> DeltaView:
@@ -309,8 +390,6 @@ class LiveIndex:
         bit-identical to the live overlay view for every policy."""
         rows, assign_main = self._main_rows()
         slots = torch.as_tensor(self.delta.live_slots(), device=self.device)
-        vecs = torch.cat([self.index.docs[rows], self.delta.vecs[slots]])
-        ids = torch.cat([self.index.doc_ids[rows], self.delta.ids[slots]])
         assign = torch.cat([assign_main, self.delta.assign[slots].long()])
         # spilled entries can push a logical cluster past list_pad (that
         # is what spilling is for); the oracle grows the tile so the
@@ -320,5 +399,5 @@ class LiveIndex:
         biggest = int(sizes.max()) if sizes.numel() else 0
         lp = max(self.index.list_pad,
                  -(-biggest // self.align) * self.align)
-        return relayout(vecs, ids, assign, self.index.centroids,
-                        list_pad=lp, align=self.align)
+        return relayout(self._sources(rows, slots), None, assign,
+                        self.index.centroids, list_pad=lp, align=self.align)

@@ -30,6 +30,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.checkpoint.manager import CheckpointError
 from repro_torch.core.ivf import (DeltaView, IVFIndex, check_same_device,
                                   index_from_arrays)
+from repro_torch.trace import span
 
 _SNAPSHOT_KEYS = ("centroids", "docs", "doc_ids", "offsets", "sizes",
                   "dvecs", "dids", "dassign", "dead", "meta")
@@ -113,7 +114,9 @@ class IndexRegistry:
             self.publish(initial)
 
     def publish(self, ver: IndexVersion) -> IndexVersion:
-        with self._lock:
+        """Make ``ver`` the current version (a ``registry.publish``
+        span under a profiler)."""
+        with span("registry.publish"), self._lock:
             cur = self._current
             if cur is not None and ver.epoch < cur.epoch:
                 raise StaleEpochError(

@@ -25,8 +25,8 @@ from repro.index import version_of as j_version_of
 from repro_torch.core import brute_force, index_from_arrays, policies, \
     search
 from repro_torch.core.serving import WaveScheduler
-from repro_torch.index import (IndexRegistry, LiveIndex, version_from_arrays,
-                               version_of)
+from repro_torch.index import (IndexRegistry, LiveIndex, assign_clusters,
+                               relayout, version_from_arrays, version_of)
 from repro_torch.launch import serve
 
 
@@ -234,6 +234,152 @@ def test_version_from_arrays_carries_a_reference_version(mutated,
                                          **kw), want)
     back = LiveIndex.from_version(ver)
     _assert_same_state(back, mutated[0], "from_version")
+
+
+# -- the streamed re-layout ---------------------------------------------------
+
+
+def _relayout_oracle(vecs, ids, assign, centroids, list_pad, align,
+                     round_total_to):
+    """The re-layout as one scatter of the whole gathered input, the
+    formula ``relayout`` streams, kept here as its oracle: (docs, ids,
+    offsets, sizes)."""
+    c, d = centroids.shape
+    sizes_t = torch.bincount(assign, minlength=c)
+    sizes = sizes_t.numpy().astype(np.int32)
+    aligned = ((sizes + align - 1) // align) * align
+    offsets = np.zeros(c, np.int32)
+    offsets[1:] = np.cumsum(aligned)[:-1]
+    total = int(aligned.sum()) + list_pad
+    if round_total_to:
+        total = -(-total // round_total_to) * round_total_to
+    order = torch.sort(assign, stable=True).indices
+    starts = torch.cumsum(sizes_t, 0) - sizes_t
+    dst = torch.empty_like(order)
+    dst[order] = torch.arange(order.numel()) - starts[assign[order]]
+    dst += torch.as_tensor(offsets)[assign].long()
+    docs = torch.zeros((total, d))
+    out_ids = torch.full((total,), -1, dtype=torch.int32)
+    docs[dst] = vecs
+    out_ids[dst] = ids
+    return docs, out_ids, torch.as_tensor(offsets), torch.as_tensor(sizes)
+
+
+def _merge_oracle(live):
+    """What ``merge_delta`` lays out, by gathering the survivors and the
+    merged slots and concatenating them: the oracle's arrays, and the
+    ids that spill back (a cluster's buffered entries are taken in
+    insertion order while its list has room)."""
+    ix = live.index
+    rows = torch.nonzero(ix.doc_ids >= 0).flatten()
+    assign_main = torch.searchsorted(ix.cluster_offsets.long(), rows,
+                                     right=True) - 1
+    fill = torch.bincount(assign_main, minlength=ix.n_clusters).numpy()
+    slots = live.delta.live_slots()
+    take = np.zeros(slots.size, bool)
+    for j, c in enumerate(live.delta.assign.numpy()[slots]):
+        if fill[c] < ix.list_pad:
+            take[j] = True
+            fill[c] += 1
+    merged = torch.as_tensor(slots[take])
+    want = _relayout_oracle(
+        torch.cat([ix.docs[rows], live.delta.vecs[merged]]),
+        torch.cat([ix.doc_ids[rows], live.delta.ids[merged]]),
+        torch.cat([assign_main, live.delta.assign[merged].long()]),
+        ix.centroids, ix.list_pad, live.align, live.round_total_to)
+    return want, live.delta.ids.numpy()[slots[~take]]
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_layout(got, want):
+    """An index's docs, ids, offsets and sizes bit for bit ``want``."""
+    for g, w in zip((got.docs, got.doc_ids, got.cluster_offsets,
+                     got.cluster_sizes), want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _layout_script(live, case, tiny_corpus):
+    """Mutations before a merge: deletes in the base, adds and deletes
+    of adds; ``spill_back`` crowds one list past list_pad,
+    ``empty_lists`` deletes every document of four lists no add
+    targets."""
+    rng = np.random.default_rng(21)
+    new = tiny_corpus.docs[rng.choice(8000, 200, replace=False)]
+    added = live.add(new + rng.normal(scale=0.05, size=new.shape)
+                     .astype(np.float32))
+    live.delete(added[::7])
+    if case == "empty_lists":
+        hit = set(live.delta.assign[:live.delta.count].tolist())
+        ix = live.index
+        for c in [c for c in range(ix.n_clusters) if c not in hit][:4]:
+            o, n = int(ix.cluster_offsets[c]), int(ix.cluster_sizes[c])
+            live.delete(ix.doc_ids[o:o + n].numpy())
+    else:
+        live.delete(rng.choice(8000, 500, replace=False))
+    if case == "spill_back":
+        c0 = live.index.centroids[0].numpy()
+        live.add((c0[None, :] + rng.normal(scale=1e-3, size=(300, c0.size))
+                  ).astype(np.float32))
+
+
+@pytest.mark.parametrize("round_total_to", [None, 4096])
+@pytest.mark.parametrize("case,chunk", [
+    ("base_deletes", 97), ("spill_back", 64), ("empty_lists", 1000),
+    ("chunk_below_list", 5)])
+def test_streamed_merge_is_the_gathered_formula(tiny_index, tiny_corpus,
+                                                monkeypatch, case, chunk,
+                                                round_total_to):
+    """``merge_delta`` and ``relayout`` moving rows ``chunk`` at a time
+    from where they lie give, bit for bit, what one gather and one
+    scatter of the concatenated input give: docs, ids, offsets, sizes,
+    zero rows with id -1 where no document lies, survivors in row order
+    then buffered entries in insertion order, and the same spill."""
+    import repro_torch.index.live as live_mod
+    monkeypatch.setattr(live_mod, "RELAYOUT_CHUNK_ROWS", chunk)
+    live = LiveIndex(_port_index(tiny_index), delta_cap=1024,
+                     round_total_to=round_total_to)
+    _layout_script(live, case, tiny_corpus)
+    vecs, ids = live.net_corpus()
+    assign = assign_clusters(vecs, live.index.centroids).long()
+    want, spilled = _merge_oracle(live)
+    live.merge_delta()
+    _assert_layout(live.index, want)
+    np.testing.assert_array_equal(
+        live.delta.ids.numpy()[live.delta.live_slots()], spilled)
+    assert (spilled.size > 0) == (case == "spill_back")
+    if case == "empty_lists":
+        assert int((live.index.cluster_sizes == 0).sum()) >= 4
+    # the plain input form, on the net corpus the merge started from
+    # (a tile that holds the crowded list)
+    _assert_layout(
+        relayout(vecs, ids, assign, live.index.centroids, list_pad=512,
+                 round_total_to=round_total_to),
+        _relayout_oracle(vecs, torch.as_tensor(ids), assign,
+                         live.index.centroids, 512, 64, round_total_to))
+
+
+def test_merge_is_the_same_in_chunks_of_one_row_and_of_all(
+        tiny_index, tiny_corpus, monkeypatch):
+    import repro_torch.index.live as live_mod
+    out = []
+    for chunk in (1, 1 << 30):
+        monkeypatch.setattr(live_mod, "RELAYOUT_CHUNK_ROWS", chunk)
+        live = LiveIndex(_port_index(tiny_index), delta_cap=1024)
+        _layout_script(live, "spill_back", tiny_corpus)
+        live.merge_delta()
+        out.append((live, live.rebuild_equivalent()))
+    (a, ra), (b, rb) = out
+    _assert_layout(a.index, (b.index.docs, b.index.doc_ids,
+                             b.index.cluster_offsets,
+                             b.index.cluster_sizes))
+    _assert_layout(ra, (rb.docs, rb.doc_ids, rb.cluster_offsets,
+                        rb.cluster_sizes))
+    for name in ("vecs", "ids", "assign"):
+        assert torch.equal(getattr(a.delta, name), getattr(b.delta, name))
 
 
 # -- registry-versioned serving ------------------------------------------------

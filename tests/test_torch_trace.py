@@ -2,7 +2,10 @@
 ``WaveScheduler.serve``): the spans a profiler records and how they
 nest, ``ServeReport.host_syncs`` against the spans and a hand count,
 the same answers with the profiler on and off, and no span entered
-with it off."""
+with it off; the live write path's spans under a hook, and
+``ServeReport.hook_ms``."""
+import time
+
 import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile
@@ -11,9 +14,12 @@ import repro_torch.trace
 from repro_torch.core.ivf import build_index
 from repro_torch.core.serving import WaveScheduler
 from repro_torch.data.synthetic import clustered_corpus
+from repro_torch.index import IndexRegistry, LiveIndex, version_of
 from repro_torch.runtime.chaos import SimClock
 
 PHASES = ("serve.harvest", "serve.admit", "serve.advance")
+LIVE_SPANS = ("serve.hook", "live.add", "live.delete", "live.merge",
+              "live.merge.layout", "live.merge.mirrors", "registry.publish")
 _CFG = dict(wave_size=16, chunk=4, k=10, n_probe=16, delta=3, phi=90.0)
 
 
@@ -37,11 +43,13 @@ def _serves(index, queries, deadline):
             for q in (queries[:40], queries[8:20])]
 
 
-def _spans(prof):
-    """(name, start_ns, end_ns) of every span the host recorded."""
+def _spans(prof, prefixes=("serve",)):
+    """(name, start_ns, end_ns) of every span the host recorded whose
+    name starts with one of ``prefixes``."""
     return sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
                   for e in prof.profiler.kineto_results.events()
-                  if e.is_user_annotation() and e.name().startswith("serve"))
+                  if e.is_user_annotation()
+                  and e.name().startswith(prefixes))
 
 
 def _innermost_parent(spans, i):
@@ -59,10 +67,11 @@ def test_spans_nest_and_count_the_host_reads(index, corpus, deadline):
         reps = _serves(index, q, deadline)
     spans = _spans(prof)
     names = [n for n, _, _ in spans]
-    assert set(names) == {"serve", "serve.sync", *PHASES}
+    assert set(names) == {"serve", "serve.sync", "serve.hook", *PHASES}
     assert names.count("serve") == len(reps)
     waves = sum(r.waves for r in reps)
     assert names.count("serve.advance") == waves
+    assert names.count("serve.hook") == waves
     # one harvest a wave, and the last one that finds every lane idle
     assert names.count("serve.harvest") == waves + len(reps)
     assert names.count("serve.sync") == sum(r.host_syncs for r in reps)
@@ -126,3 +135,54 @@ def test_no_span_is_entered_without_a_profiler(index, corpus,
     with pytest.raises(AssertionError, match="span serve entered"):
         with profile(activities=[ProfilerActivity.CPU]):
             _serves(index, corpus.queries, None)
+
+
+def _live_serve(index, corpus):
+    """One serve() of a live index through a registry, its hook adding
+    4 documents and deleting 2 after every wave and merging after every
+    second."""
+    live = LiveIndex(index, delta_cap=256)
+    reg = IndexRegistry(version_of(live))
+    ws = WaveScheduler(index, registry=reg, **_CFG)
+    rng = np.random.default_rng(4)
+
+    def hook(wave):
+        live.add(corpus.docs[rng.integers(0, 2000, 4)] + np.float32(1e-3))
+        live.delete(rng.integers(0, 2000, 2))
+        if wave % 2 == 0:
+            live.merge_delta()
+        reg.publish(version_of(live))
+
+    return ws.serve(corpus.queries[:40], on_wave=hook)
+
+
+def test_live_serve_records_the_write_path_spans(index, corpus):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep = _live_serve(index, corpus)
+    spans = _spans(prof, ("serve", "live", "registry"))
+    names = [n for n, _, _ in spans]
+    assert set(LIVE_SPANS) <= set(names)
+    assert rep.waves >= 2
+    for n in ("serve.hook", "live.add", "live.delete"):
+        assert names.count(n) == rep.waves, n
+    for n in ("live.merge", "live.merge.layout", "live.merge.mirrors"):
+        assert names.count(n) == rep.waves // 2, n
+    # the registry's first version, then one a wave
+    assert names.count("registry.publish") == rep.waves + 1
+    for i, (n, _, _) in enumerate(spans):
+        parent = _innermost_parent(spans, i)
+        if n in ("live.merge.layout", "live.merge.mirrors"):
+            assert parent == "live.merge"
+        elif n in ("live.add", "live.delete", "live.merge"):
+            assert parent == "serve.hook"
+        elif n == "serve.hook":
+            assert parent == "serve"
+
+
+def test_hook_ms_sums_the_hook(index, corpus):
+    """0.0 without a hook; with one, at least the time it sleeps."""
+    ws = WaveScheduler(index, **_CFG)
+    assert ws.serve(corpus.queries[:40]).hook_ms == 0.0
+    rep = ws.serve(corpus.queries[:40], on_wave=lambda w: time.sleep(0.002))
+    assert rep.hook_ms >= 2.0 * rep.waves
+    assert _live_serve(index, corpus).hook_ms > 0.0
