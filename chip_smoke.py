@@ -29,8 +29,8 @@ a line of its own:
    d=768, k=100, N=80, tau=10, patience Delta=7, Phi=95, list_pad=256)
    on a 1M-document synthetic corpus: build the index on the card,
    serve 1,024 queries through the wave scheduler (one fused
-   ``ivf_scan_merge`` launch per chunk, one ``row_topk`` launch per
-   admission), and check it against fused
+   ``ivf_scan_merge`` launch per chunk, one ``slot_roll`` launch a wave,
+   one ``row_topk`` launch per admission), and check it against fused
    ``search``, the per-probe kernel pair and brute force;
 3b. the learned exit stages on that index (``learned_train``,
    ``learned_search``, ``learned_fused_vs_pair``, ``learned_features``):
@@ -119,7 +119,10 @@ a line of its own:
    the gated buffer columns), beside the launch floor (an empty
    kernel); ``row_topk`` at a merge's width (128 x 356, k 100), the
    admission's (512 x 65,536, k 80) and a brute force's (128 x 8,000, k
-   10), beside the stable sort and ``torch.topk``; ``flash_attention``
+   10), beside the stable sort and ``torch.topk``; ``slot_roll`` at the
+   benchmark's wave (1,024 lanes, chunk 8, k 100 and 10) beside the
+   chain of PyTorch ops it replaced, by events and by host clock
+   around a synchronised call; ``flash_attention``
    (the prefill's 96 x 2,048 x 128 bf16,
    and MiniCPM3's 160 x 2,048 at qk 96, v 64 beside the
    ``scaled_dot_product_attention`` backend PyTorch picks there)
@@ -196,6 +199,8 @@ CAP, MUTATION_RATE, MERGE_EVERY = 4096, 64, 16
 PRE_ADDS, PRE_DELETES = 1024, 256
 RECALL_GAP_MAX = 0.01          # the reference's make bench-smoke gate
 N_PROBE, TAU, DELTA, PHI = 80, 10, 7, 95.0
+# the benchmark cells' wave (portbench/): its slot_roll timing rows
+SLOT_ROLL_LANES, SLOT_ROLL_CHUNK = 1024, 8
 N_DOCS, N_CLUSTERS, N_QUERIES = 1_000_000, 8192, 1024
 # the late-probe timing row: probe LATE_PROBE (0-based) of a search whose
 # mean probe count C is about 28 at these widths
@@ -274,6 +279,33 @@ def unit_sims(n_q, width, dev, *, seed, d=96):
     c = torch.randn(width, d, generator=g, device=dev)
     return torch.nn.functional.normalize(q, dim=1) \
         @ torch.nn.functional.normalize(c, dim=1).T
+
+
+def slot_roll_inputs(w, chunk, k, dev, *, seed):
+    """A wave's ``slot_roll`` arguments on ``dev``: random snapshots and
+    carried top-k, new-entry counts 0 (phi 100) about half the time so
+    that lanes exit by patience mid-chunk, 15% of the lanes inactive, h
+    from 0 to 12, patience 7, probe budget 80."""
+    import torch
+    from repro_torch.kernels.slot_roll import Lanes
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    cnts = torch.where(rand(w, chunk) < 0.5, 0, ints(0, k + 1, w, chunk))
+    lanes = Lanes(h=ints(0, 13, w), patience=ints(0, 7, w),
+                  active=rand(w) < 0.85,
+                  topk_scores=torch.randn(w, k, generator=g, device=dev),
+                  topk_ids=ints(0, 1 << 30, w, k))
+    return (torch.randn(w, chunk, k, generator=g, device=dev),
+            ints(0, 1 << 30, w, chunk, k), cnts.to(torch.int32), lanes,
+            torch.full((w,), DELTA, dtype=torch.int32, device=dev),
+            torch.full((w,), N_PROBE, dtype=torch.int32, device=dev))
 
 
 def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -2629,7 +2661,7 @@ def deadline_phases(ctx, index, queries, exact, static):
         ctx.read(f"deadline serve {dl} ms (sim clock, per-probe kernel "
                  f"pair)", ["ivf_scan", "topk_merge"],
                  absent=["ivf_scan_merge", "ivf_scan_merge+delta",
-                         "delta_scan"])
+                         "delta_scan", "slot_roll"])
         fused = sim[dl]
         for name in ("degraded", "latency_ms", "waves", "wave_cost_ms",
                      "probes"):
@@ -3681,6 +3713,7 @@ def main() -> None:
     from repro_torch.kernels import ivf_scan as k_scan
     from repro_torch.kernels import ivf_scan_merge as k_sm
     from repro_torch.kernels import row_topk as k_rt
+    from repro_torch.kernels import slot_roll as k_sr
     from repro_torch.kernels import topk_merge as k_tm
     from repro_torch.launch.serve import MutationStream
 
@@ -3690,6 +3723,7 @@ def main() -> None:
     counters = {"ivf_scan": (k_scan.ivf_scan, "launches"),
                 "topk_merge": (k_tm.topk_merge, "launches"),
                 "row_topk": (k_rt.row_topk, "launches"),
+                "slot_roll": (k_sr.slot_roll, "launches"),
                 "ivf_scan_merge": (k_sm.ivf_scan_merge, "launches"),
                 "delta_scan": (k_ds.delta_scan, "launches"),
                 "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
@@ -4077,11 +4111,14 @@ def main() -> None:
         finally:
             serving._admit = admit
         counts = read_launches("serve (WaveScheduler, fused)",
-                               ["ivf_scan_merge", "row_topk"],
+                               ["ivf_scan_merge", "row_topk", "slot_roll"],
                                absent=["ivf_scan_merge+delta", "delta_scan"])
         if counts["row_topk"] != len(admits):
             raise AssertionError(f"{counts['row_topk']} row_topk launches "
                                  f"for {len(admits)} admissions")
+        if counts["slot_roll"] != rep.waves:
+            raise AssertionError(f"{counts['slot_roll']} slot_roll launches "
+                                 f"in {rep.waves} waves")
         print(f"serve: {len(admits)} admissions of {min(admits)} to "
               f"{max(admits)} queries, one row_topk launch each")
         served = np.stack([rep.results[i] for i in range(N_QUERIES)])
@@ -4183,9 +4220,11 @@ def main() -> None:
                                ["ivf_scan_merge+delta"],
                                absent=["ivf_scan_merge", "delta_scan",
                                        "ivf_scan", "topk_merge"])
-        if counts["ivf_scan_merge+delta"] != rep_l.waves:
+        if counts["ivf_scan_merge+delta"] != rep_l.waves \
+                or counts["slot_roll"] != rep_l.waves:
             raise AssertionError("the live serve did not launch the fused "
-                                 "kernel with the stream once per wave")
+                                 "kernel with the stream and slot_roll "
+                                 "once per wave")
         if sorted(rep_l.results) != list(range(N_QUERIES)):
             raise AssertionError("the live serve did not answer every "
                                  "query once")
@@ -4601,6 +4640,46 @@ def main() -> None:
                 bound=bound(n_q * width * 4 + n_q * kk * 8, 0),
                 library_ms=time_call(f"{name}: torch.topk",
                                      lambda: torch.topk(x, kk, dim=1), 20)))
+        # slot_roll at the benchmark cells' wave: 1,024 lanes, chunk 8,
+        # msmarco's k 100 and deep10m's k 10
+        for kk in (100, 10):
+            name = f"slot_roll (k {kk})"
+            args = slot_roll_inputs(SLOT_ROLL_LANES, SLOT_ROLL_CHUNK, kk,
+                                    dev, seed=kk)
+            kw = dict(k=kk, chunk=SLOT_ROLL_CHUNK, phi=PHI)
+            g = k_sr.slot_roll(*args, **kw)
+            sync()
+            w = k_sr.slot_roll_plain(*args, **kw)
+            if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                       for x, y in zip(g, w)):
+                raise AssertionError(f"{name}: not bit-equal")
+            walls = {}
+            for label, fn in (("kernel", k_sr.slot_roll),
+                              ("chain", k_sr.slot_roll_plain)):
+                roll_ms = []
+                for _ in range(50):
+                    sync()
+                    t0 = time.perf_counter()
+                    fn(*args, **kw)
+                    sync()
+                    roll_ms.append((time.perf_counter() - t0) * 1e3)
+                walls[label] = float(np.median(roll_ms))
+            print(f"{name}: host clock around a synchronised call, median "
+                  f"of 50: kernel {walls['kernel']:.6f} ms, chain of "
+                  f"PyTorch ops {walls['chain']:.6f} ms")
+            rows.append(dict(
+                name=name, counter="slot_roll", route="cuda",
+                source="src/repro_torch/csrc/slot_roll.cu",
+                replaces="none: core/serving.py:_advance's chain of "
+                         "PyTorch ops (jnp ops in the reference)",
+                max_abs_err=0.0,
+                ms=time_call(name, lambda: k_sr.slot_roll(*args, **kw), 50,
+                             profiled=True),
+                plain_ms=time_call(f"{name} plain", lambda: (
+                    k_sr.slot_roll_plain(*args, **kw)), 20),
+                bound=bound(SLOT_ROLL_LANES * (SLOT_ROLL_CHUNK * 4 + 26
+                                               + kk * 16), 0),
+                library_ms=None))
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
                                  rs_params["table"],
                                  rs_params["linear_table"], rs_rows)

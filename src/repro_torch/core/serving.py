@@ -8,7 +8,7 @@ Lane state is a tuple of (W, ...) tensors on the index's device;
 admission and the chunk advance are tensor ops there, and the host loop
 only moves query ids.  The fused path advances a wave with ONE
 ``ivf_scan_merge`` launch per chunk, the live index's delta buffer
-riding it as its delta stream.
+riding it as its delta stream, and ONE ``slot_roll`` launch.
 
 With a version registry (``repro_torch.index.IndexRegistry``) the
 scheduler serves the live index: it adopts the registry's current
@@ -39,6 +39,7 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, _as_queries,
 from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
                                        RUNG_TIGHTEN, DegradationLadder)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.slot_roll import Lanes, slot_step
 from repro_torch.trace import span
 
 
@@ -51,6 +52,11 @@ class LaneState(NamedTuple):
     patience: torch.Tensor      # (W,) int32
     active: torch.Tensor        # (W,) bool — lane holds a live query
     qid: torch.Tensor           # (W,) int32 external id, -1 empty
+
+
+def _lanes(st: LaneState) -> Lanes:
+    return Lanes(h=st.h, patience=st.patience, active=st.active,
+                 topk_scores=st.topk_scores, topk_ids=st.topk_ids)
 
 
 def _empty_state(w: int, d: int, n: int, k: int,
@@ -108,12 +114,12 @@ def _advance(index: IVFIndex, state: LaneState,
     ``delta``/``n_probe``); under deadline pressure the degradation
     ladder lowers them per lane, so a struggling lane exits earlier
     while its neighbours run the full policy.  The fused path issues ONE
-    ``ivf_scan_merge`` launch for the whole chunk and rolls lane state
-    forward slot by slot from the kernel's per-probe snapshots, so
-    mid-chunk exits land on the exact probe they would on the per-probe
-    path.  Its slots are budgeted by ``n_probe``, not ``lane_cap``: a
-    capped lane's later slots are scanned and then discarded by the
-    slot roll, so fused stays equal to per-probe.  The per-probe path
+    ``ivf_scan_merge`` launch for the whole chunk and ONE ``slot_roll``
+    launch that rolls lane state forward slot by slot from that kernel's
+    per-probe snapshots, so mid-chunk exits land on the exact probe they
+    would on the per-probe path.  Its slots are budgeted by ``n_probe``,
+    not ``lane_cap``: a capped lane's later slots are scanned and then
+    discarded by the slot roll, so fused stays equal to per-probe.  The per-probe path
     runs the kernel pair (``ivf_scan`` + ``topk_merge``; their plain
     versions on the CPU): on the card only the pair scores and ranks in
     the fused kernel's order, so the two paths agree bit for bit there
@@ -142,17 +148,6 @@ def _advance(index: IVFIndex, state: LaneState,
             d_valid = (d_ids_eff >= 0)[None, :]
             d_ids = d_ids_eff[None, :].expand(d_sc.shape[0], -1)
 
-    def slot(st: LaneState, ms, mi, phi_v) -> LaneState:
-        act = st.active[:, None]
-        ts = torch.where(act, ms, st.topk_scores)
-        ti = torch.where(act, mi, st.topk_ids)
-        ctr = torch.where(st.active & (st.h >= 1) & (phi_v >= phi),
-                          st.patience + 1, 0)
-        h = torch.where(st.active, st.h + 1, st.h)
-        exited = st.active & ((ctr >= lane_delta) | (h >= lane_cap))
-        return st._replace(h=h, topk_scores=ts, topk_ids=ti, patience=ctr,
-                           active=st.active & ~exited)
-
     if use_fused:
         rel = torch.arange(chunk, device=state.h.device)[None, :]
         idx = (state.h[:, None] + rel).clamp(0, n_probe - 1)
@@ -171,11 +166,9 @@ def _advance(index: IVFIndex, state: LaneState,
             index.cluster_offsets[cids], sizes, state.topk_scores,
             state.topk_ids, *dargs, k=k, list_pad=index.list_pad,
             chunk=chunk)
-        st = state
-        for t in range(chunk):
-            phi_v = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
-            st = slot(st, snap_s[:, t], snap_i[:, t], phi_v)
-        return st
+        return state._replace(**kops.slot_roll(
+            snap_s, snap_i, cnts, _lanes(state), lane_delta, lane_cap, k=k,
+            chunk=chunk, phi=phi)._asdict())
 
     st = state
     for _ in range(chunk):
@@ -193,7 +186,9 @@ def _advance(index: IVFIndex, state: LaneState,
         ms, mi = _merge_topk(st.topk_scores, st.topk_ids, sc, ids, k,
                              use_kernel=True)
         ti = torch.where(st.active[:, None], mi, st.topk_ids)
-        st = slot(st, ms, mi, intersection_pct(st.topk_ids, ti))
+        st = st._replace(**slot_step(
+            _lanes(st), ms, mi, intersection_pct(st.topk_ids, ti), phi=phi,
+            lane_delta=lane_delta, lane_cap=lane_cap)._asdict())
     return st
 
 

@@ -26,13 +26,14 @@ BUILD = _PKG / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: every pointer and the stream are void*, sizes are int;
-# each returns cudaGetLastError() of its launch.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: every pointer and the stream are void*, sizes are int,
+# a threshold float; each returns cudaGetLastError() of its launch.
 _SIGNATURES = {
     "ivf_scan": [_P] * 4 + [_I] * 4 + [_P],
     "topk_merge": [_P] * 6 + [_I] * 5 + [_P],
     "row_topk": [_P] * 3 + [_I] * 3 + [_P],
+    "slot_roll": [_P] * 15 + [_I] * 3 + [_F, _P],
     "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
     "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
     "flash_attention_f32": [_P] * 4 + [_I] * 5 + [_P],

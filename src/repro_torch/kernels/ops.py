@@ -23,6 +23,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_scan as _scan
 from repro_torch.kernels import ivf_scan_merge as _sm
 from repro_torch.kernels import row_topk as _rt
+from repro_torch.kernels import slot_roll as _sr
 from repro_torch.kernels import topk_merge as _tm
 
 
@@ -104,6 +105,19 @@ def row_topk(x, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, W) float32 -> each row's first k values and int32 positions,
     in a stable descending sort's order (``core.ivf.top_k``)."""
     return _rt.row_topk(x.contiguous(), k)
+
+
+def slot_roll(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *, k: int,
+              chunk: int, phi: float) -> _sr.Lanes:
+    """Roll the lanes' fields (``slot_roll.Lanes``) through the fused
+    kernel's (W, chunk, k) snapshots and (W, chunk) new-entry counts:
+    per slot, the patience exit rule with phi threshold ``phi`` and the
+    per-lane (W,) ``lane_delta``/``lane_cap``."""
+    return _sr.slot_roll(snap_s.contiguous(), snap_i.contiguous(),
+                         cnts.contiguous(),
+                         _sr.Lanes(*(t.contiguous() for t in lanes)),
+                         lane_delta.contiguous(), lane_cap.contiguous(),
+                         k=k, chunk=chunk, phi=phi)
 
 
 def embedding_bag(table, ids) -> torch.Tensor:

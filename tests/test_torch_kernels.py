@@ -1054,3 +1054,257 @@ def test_gpu_row_topk_unaligned_start_and_empty_batch(cuda):
     v, i = t_rt.row_topk(x[:0], 80)
     assert v.shape == (0, 80) and i.shape == (0, 80)
     assert t_rt.row_topk.launches == before
+
+
+# -- slot_roll: the fused advance's lane-state roll ---------------------------
+
+# (W, chunk, k): lanes of an odd count and of the benchmark's waves, the
+# chunks 1, 4 and 8, the top-k widths 1, 10 (deep10m) and 100 (msmarco)
+SLOT_ROLL_SHAPES = [(w, c, k) for w in (37, 1024) for c in (1, 4, 8)
+                    for k in (1, 10, 100)]
+
+
+def slot_roll_case(w, chunk, k, seed=0):
+    """A wave's slot-roll inputs as numpy arrays: 15% of the lanes
+    inactive at the wave's top, h from 0 (a fresh lane) to 12, counts
+    drawn 0 (phi 100) three times in five so that patience exits land at
+    every slot; the exit knobs as the deadline ladder sets them: patience
+    7, tightened 2 or 1, probe budget 80, or h plus a multiple of the
+    chunk, or h plus 1 to chunk (a cap exit at every slot).  Snapshots
+    and the carried top-k hold -inf scores and -1 ids."""
+    rng = np.random.default_rng([w, chunk, k, seed])
+
+    def topk(*shape):
+        s = rng.normal(size=shape).astype(np.float32)
+        s[rng.random(shape) < 0.1] = -np.inf
+        i = rng.integers(0, 1 << 30, shape).astype(np.int32)
+        return s, np.where(np.isinf(s), -1, i).astype(np.int32)
+
+    snap_s, snap_i = topk(w, chunk, k)
+    cnts = np.where(rng.random((w, chunk)) < 0.6, 0,
+                    rng.integers(0, k + 1, (w, chunk))).astype(np.int32)
+    h = np.where(rng.random(w) < 0.15, 0,
+                 rng.integers(1, 13, w)).astype(np.int32)
+    rule = rng.integers(0, 3, w)
+    cap = np.where(rule == 0, 80, np.where(
+        rule == 1, h + chunk * rng.integers(0, 3, w),
+        h + rng.integers(1, chunk + 1, w)))
+    return dict(
+        snap_s=snap_s, snap_i=snap_i, cnts=cnts, h=h,
+        patience=rng.integers(0, 7, w).astype(np.int32),
+        active=rng.random(w) < 0.85,
+        topk=topk(w, k),
+        lane_delta=rng.choice(np.int32([7, 7, 2, 1]), w),
+        lane_cap=np.minimum(cap, 80).astype(np.int32))
+
+
+def slot_roll_args(case, dev="cpu"):
+    """(snap_s, snap_i, cnts, Lanes, lane_delta, lane_cap) as tensors on
+    ``dev``."""
+    from repro_torch.kernels.slot_roll import Lanes
+
+    t = {n: T(np.ascontiguousarray(v)).to(dev) for n, v in case.items()
+         if n != "topk"}
+    s, i = (T(x).to(dev) for x in case["topk"])
+    return (t["snap_s"], t["snap_i"], t["cnts"],
+            Lanes(h=t["h"], patience=t["patience"], active=t["active"],
+                  topk_scores=s, topk_ids=i), t["lane_delta"], t["lane_cap"])
+
+
+def _seed_slot_chain(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *,
+                     k, chunk, phi):
+    """The fused advance's slot roll as core/serving.py ran it before
+    ``kernels/slot_roll.py`` held it, kept verbatim as the oracle."""
+    def slot(st, ms, mi, phi_v):
+        act = st.active[:, None]
+        ts = torch.where(act, ms, st.topk_scores)
+        ti = torch.where(act, mi, st.topk_ids)
+        ctr = torch.where(st.active & (st.h >= 1) & (phi_v >= phi),
+                          st.patience + 1, 0)
+        h = torch.where(st.active, st.h + 1, st.h)
+        exited = st.active & ((ctr >= lane_delta) | (h >= lane_cap))
+        return st._replace(h=h, topk_scores=ts, topk_ids=ti, patience=ctr,
+                           active=st.active & ~exited)
+
+    st = lanes
+    for t in range(chunk):
+        phi_v = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
+        st = slot(st, snap_s[:, t], snap_i[:, t], phi_v)
+    return st
+
+
+def _slot_roll_model(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *,
+                     k, chunk, phi):
+    """csrc/slot_roll.cu step for step in numpy, every lane at once: the
+    loop over the slots in registers, phi_v as two float32 products by
+    the reciprocal of k, then one copy of the last active slot's top-k
+    (or the carried one)."""
+    n = {f: v.numpy().copy() for f, v in lanes._asdict().items()}
+    h, pat, act = n["h"], n["patience"], n["active"]
+    inv_k = np.float32(1.0) / np.float32(k)
+    last = np.full(h.shape, -1)
+    for t in range(chunk):
+        phi_v = (np.float32(100.0)
+                 * (k - cnts[:, t].numpy()).astype(np.float32)) * inv_k
+        pat = np.where(act, np.where((h >= 1) & (phi_v >= np.float32(phi)),
+                                     pat + 1, 0), 0).astype(np.int32)
+        h = np.where(act, h + 1, h).astype(np.int32)
+        last = np.where(act, t, last)
+        act = act & ~((pat >= lane_delta.numpy()) | (h >= lane_cap.numpy()))
+    rows = np.arange(h.shape[0])
+    pick = np.maximum(last, 0)
+    ts = np.where((last >= 0)[:, None], snap_s.numpy()[rows, pick],
+                  n["topk_scores"])
+    ti = np.where((last >= 0)[:, None], snap_i.numpy()[rows, pick],
+                  n["topk_ids"])
+    return h, pat, act, ts, ti
+
+
+def _assert_same_lanes(got, want):
+    for f in got._fields:
+        g, x = getattr(got, f), getattr(want, f)
+        assert g.dtype == x.dtype and g.shape == x.shape, f
+        if g.dtype == torch.float32:
+            g, x = g.view(torch.int32), x.view(torch.int32)
+        assert torch.equal(g, x), f
+
+
+@pytest.mark.parametrize("w,chunk,k", SLOT_ROLL_SHAPES)
+@pytest.mark.parametrize("phi", [90.0, 95.0])
+def test_slot_roll_plain_is_the_seed_chain(w, chunk, k, phi):
+    """On the CPU the wrapper runs ``slot_roll_plain``, which is the
+    chain the fused advance ran before, bit for bit, and launches
+    nothing; a numpy model of the kernel's steps gives the same lanes."""
+    from repro_torch.kernels import slot_roll as t_sr
+
+    args = slot_roll_args(slot_roll_case(w, chunk, k))
+    kw = dict(k=k, chunk=chunk, phi=phi)
+    want = _seed_slot_chain(*args, **kw)
+    before = t_sr.slot_roll.launches
+    _assert_same_lanes(t_sr.slot_roll_plain(*args, **kw), want)
+    _assert_same_lanes(tops.slot_roll(*args, **kw), want)
+    assert t_sr.slot_roll.launches == before
+    model = _slot_roll_model(*args, **kw)
+    for f, m in zip(want._fields, model):
+        np.testing.assert_array_equal(getattr(want, f).numpy(), m,
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("bad", ["snap_f64", "cnts_i64", "active_i32",
+                                 "cap_i64", "k_disagrees", "chunk_disagrees",
+                                 "lanes_disagree", "k_zero", "strided"])
+def test_slot_roll_wrapper_raises(bad):
+    from repro_torch.kernels import slot_roll as t_sr
+
+    snap_s, snap_i, cnts, lanes, dl, cap = slot_roll_args(
+        slot_roll_case(37, 4, 10))
+    kw = dict(k=10, chunk=4, phi=95.0)
+    if bad == "snap_f64":
+        snap_s = snap_s.double()
+    elif bad == "cnts_i64":
+        cnts = cnts.long()
+    elif bad == "active_i32":
+        lanes = lanes._replace(active=lanes.active.int())
+    elif bad == "cap_i64":
+        cap = cap.long()
+    elif bad == "k_disagrees":
+        kw["k"] = 9
+    elif bad == "chunk_disagrees":
+        kw["chunk"] = 8
+    elif bad == "lanes_disagree":
+        lanes = lanes._replace(h=lanes.h[:36])
+    elif bad == "k_zero":
+        kw["k"] = 0
+    else:
+        snap_s = snap_s.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="slot_roll"):
+        t_sr.slot_roll(snap_s, snap_i, cnts, lanes, dl, cap, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,chunk,k", SLOT_ROLL_SHAPES)
+@pytest.mark.parametrize("phi", [90.0, 95.0])
+def test_gpu_slot_roll_matches_plain(cuda, w, chunk, k, phi):
+    """The kernel against ``slot_roll_plain`` on the same CUDA tensors,
+    bit for bit on every field, one launch a call; at W 1,024 the case
+    holds exits at every slot, by patience and by the probe cap, and
+    lanes inactive at the wave's top."""
+    from repro_torch.kernels import slot_roll as t_sr
+
+    args = slot_roll_args(slot_roll_case(w, chunk, k), cuda)
+    kw = dict(k=k, chunk=chunk, phi=phi)
+    want = t_sr.slot_roll_plain(*args, **kw)
+    before = t_sr.slot_roll.launches
+    got = tops.slot_roll(*args, **kw)
+    torch.cuda.synchronize()
+    assert t_sr.slot_roll.launches == before + 1
+    _assert_same_lanes(got, want)
+    if w == 1024:
+        lanes = args[3]
+        exited = (lanes.active & ~want.active).cpu().numpy()
+        at = (want.h - lanes.h - 1).cpu().numpy()[exited]
+        assert set(at) == set(range(chunk))
+        by_cap = (want.h >= args[5]).cpu().numpy()[exited]
+        assert by_cap.any() and (~by_cap).any()
+        assert (~lanes.active).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 100])
+@pytest.mark.parametrize("phi", [90.0, 95.0])
+def test_gpu_slot_roll_phi_at_every_count(cuda, k, phi):
+    """Every count in [0, k] at one slot and at the chunk's last: the
+    patience the kernel counts is the chain's, at ``phi`` and at phi set
+    to each count's own phi_v on the card and to the float just above
+    it, so a phi_v one ulp off the chain's shows."""
+    from repro_torch.kernels import slot_roll as t_sr
+
+    w = 1024
+    counts = np.arange(w) % (k + 1)
+    for chunk in (1, 8):
+        case = slot_roll_case(w, chunk, k, seed=1)
+        case["cnts"] = ((counts[:, None] + np.arange(chunk)) % (k + 1)) \
+            .astype(np.int32)
+        case["h"] = (1 + np.arange(w) % 3).astype(np.int32)
+        case["active"] = np.ones(w, bool)
+        case["lane_delta"] = np.full(w, 1 << 30, np.int32)
+        case["lane_cap"] = np.full(w, 1 << 30, np.int32)
+        args = slot_roll_args(case, cuda)
+        phi_v = (100.0 * (k - T(np.arange(k + 1, dtype=np.int32)).to(cuda))
+                 .to(torch.float32) / k).cpu().numpy()
+        phis = [phi] + [float(v) for v in phi_v] + [
+            float(np.nextafter(v, np.float32(np.inf))) for v in phi_v]
+        for p in phis:
+            kw = dict(k=k, chunk=chunk, phi=p)
+            _assert_same_lanes(t_sr.slot_roll(*args, **kw),
+                               t_sr.slot_roll_plain(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,chunk", [(10, 4), (100, 8)])
+def test_gpu_serve_fused_equals_per_probe(cuda, k, chunk):
+    """On a small index on the card the fused serve (one ``slot_roll``
+    launch a wave) answers every query with the per-probe kernel pair's
+    ids and probes; the per-probe path launches no ``slot_roll``."""
+    from repro_torch.core import build_index
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.data.synthetic import clustered_corpus
+    from repro_torch.kernels import slot_roll as t_sr
+
+    c = clustered_corpus(n_docs=6000, dim=32, n_components=48,
+                         n_queries=200, seed=11)
+    index = build_index(c.docs, 48, list_pad=256, n_iters=3, device=cuda)
+    reps = {}
+    for fused in (True, False):
+        before = t_sr.slot_roll.launches
+        reps[fused] = WaveScheduler(
+            index, wave_size=64, chunk=chunk, k=k, n_probe=32, delta=3,
+            phi=90.0, use_fused=fused).serve(c.queries)
+        launched = t_sr.slot_roll.launches - before
+        assert launched == (reps[fused].waves if fused else 0)
+    assert sorted(reps[True].results) == list(range(200))
+    for q in range(200):
+        np.testing.assert_array_equal(reps[True].results[q],
+                                      reps[False].results[q], err_msg=q)
+        assert reps[True].probes[q] == reps[False].probes[q], q
+    assert len(set(reps[True].probes.values())) > 1
