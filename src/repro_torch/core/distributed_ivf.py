@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.core.ivf import (IVFIndex, _as_queries, _merge_topk,
-                                  intersection_pct, top_k)
+from repro_torch.core.ivf import (IVFIndex, as_queries, intersection_pct,
+                                  merge_topk, top_k)
 from repro_torch.distributed.collectives import all_gather, all_reduce
 from repro_torch.kernels.ivf_scan import score_rows
 from repro_torch.launch.mesh import axis_group, axis_index, local_block
@@ -154,7 +154,7 @@ def _shard_local_topk(centroids, docs, doc_ids, offsets, sizes, queries,
 
     The shard packs its lists without ``blk_l`` alignment, so no list
     kernel applies: rows are scored by the plain ``score_rows`` and
-    merged by the plain ``_merge_topk``, as the reference scores them
+    merged by the plain ``merge_topk``, as the reference scores them
     outside its kernels."""
     csims = queries @ centroids.T                       # (B, Cs)
     n_rank = min(n_local, centroids.shape[0])
@@ -172,7 +172,7 @@ def _shard_local_topk(centroids, docs, doc_ids, offsets, sizes, queries,
         m = (lane[None, :] < sizes[cids][:, None]) & (ids >= 0)
         sc = torch.where(m, score_rows(queries, docs, rows), float("-inf"))
         ids = torch.where(m, ids, -1)
-        ts, ti = _merge_topk(ts, ti, sc, ids, k)
+        ts, ti = merge_topk(ts, ti, sc, ids, k)
     return ts, ti
 
 
@@ -216,7 +216,7 @@ def search_with_retry(sharded: ShardedIVF, queries, *, k: int,
     if rng is None:
         rng = np.random.default_rng(0)
     dev = resolve_device(device)
-    q = _as_queries(queries, dev)
+    q = as_queries(queries, dev)
     n_local = -(-n_probe // sharded.n_shards)
     report = ShardRetryReport(budget_ms=retry.budget_ms)
     parts_s, parts_i = [], []
@@ -413,7 +413,7 @@ def make_distributed_search(mesh, *, n_probe: int, k: int,
         while (h < unroll_steps if unroll_steps is not None
                else h < n_rank):
             sc, ids, scanned = probe(min(h, n_rank - 1))
-            nls, nli = _merge_topk(lsc, lid, sc, ids, k)
+            nls, nli = merge_topk(lsc, lid, sc, ids, k)
             lsc = torch.where(active[:, None], nls, lsc)
             lid = torch.where(active[:, None], nli, lid)
             gprev, (_, gi) = gi, merge_global(lsc, lid)

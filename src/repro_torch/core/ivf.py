@@ -68,6 +68,13 @@ class DeltaView(NamedTuple):
     ids: torch.Tensor      # (cap,) int32 external doc ids, -1 empty
     assign: torch.Tensor   # (cap,) int32 assigned cluster, -1 empty
 
+    def burn_dead(self, dead: torch.Tensor) -> "DeltaView":
+        """This view with the ids that the (id_capacity,) bool tombstone
+        lookup ``dead`` marks burnt to -1, so every path masks them like
+        empty slots."""
+        return self._replace(
+            ids=torch.where(_is_dead(self.ids, dead), -1, self.ids))
+
 
 def check_same_device(dev: torch.device, what: str, *tensors) -> None:
     """Raise unless every tensor lies on ``dev``: nothing is copied."""
@@ -90,7 +97,7 @@ def index_device(index: IVFIndex, device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def _as_queries(queries, dev: torch.device) -> torch.Tensor:
+def as_queries(queries, dev: torch.device) -> torch.Tensor:
     """Queries as f32 on the index's device: host arrays are copied
     there, tensors must already lie there."""
     if isinstance(queries, torch.Tensor):
@@ -277,8 +284,8 @@ def _is_dead(ids: torch.Tensor, dead: torch.Tensor) -> torch.Tensor:
     return dead[ids.clamp(0, dead.shape[0] - 1).long()] & (ids >= 0)
 
 
-def _scrub_dead(scores: torch.Tensor, ids: torch.Tensor, dead: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def scrub_dead(scores: torch.Tensor, ids: torch.Tensor, dead: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask candidates whose external id is tombstoned.
 
     ``dead`` is the cumulative (id_capacity,) bool lookup from
@@ -290,16 +297,78 @@ def _scrub_dead(scores: torch.Tensor, ids: torch.Tensor, dead: torch.Tensor
             torch.where(gone, -1, ids))
 
 
-def _merge_topk(scores: torch.Tensor, ids: torch.Tensor,
-                new_scores: torch.Tensor, new_ids: torch.Tensor, k: int,
-                use_kernel: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def merge_topk(scores: torch.Tensor, ids: torch.Tensor,
+               new_scores: torch.Tensor, new_ids: torch.Tensor, k: int,
+               use_kernel: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k of a running (B, k) top-k and (B, n) candidates: the
+    ``topk_merge`` kernel with ``use_kernel``, else ``top_k`` of their
+    concatenation."""
     if use_kernel:
         return kops.topk_merge(scores, ids, new_scores, new_ids, k)
     cat_s = torch.cat([scores, new_scores], dim=1)
     cat_i = torch.cat([ids, new_ids], dim=1)
     top_s, idx = top_k(cat_s, k)
     return top_s, torch.gather(cat_i, 1, idx.long())
+
+
+# ---------------------------------------------------------------------------
+# Probe steps: the fused kernel's and the kernel pair's calling conventions,
+# shared by ``search`` and ``core.serving.WaveScheduler``
+# ---------------------------------------------------------------------------
+
+
+def scan_merge_chunk(index: IVFIndex, queries: torch.Tensor,
+                     cids: torch.Tensor, slot_ok: torch.Tensor,
+                     topk_scores: torch.Tensor, topk_ids: torch.Tensor,
+                     delta: Optional[DeltaView] = None, *, k: int,
+                     chunk: int, blk_l: int = 64
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ``ivf_scan_merge`` launch over a chunk of probes: (B, chunk)
+    probed clusters ``cids`` merged into the running (B, k) top-k.
+
+    ``slot_ok`` (a bool mask that broadcasts to (B, chunk)) says which
+    slots merge: a masked slot streams no list rows and gates the delta
+    stream on -2, a cluster no buffer entry names (an empty slot's
+    assign is -1, a real cluster >= 0), so it merges nothing.  ``delta``
+    rides the kernel as its delta stream, each entry merged at the slot
+    of its assigned cluster.  Returns ``ivf_scan_merge``'s (B, chunk, k)
+    snapshot scores and ids and (B, chunk) new-entry counts."""
+    sizes = torch.where(slot_ok, index.cluster_sizes[cids], 0)
+    dargs = () if delta is None else (
+        *delta, torch.where(slot_ok, cids, -2))
+    return kops.ivf_scan_merge(
+        queries, index.docs, index.doc_ids, index.cluster_offsets[cids],
+        sizes, topk_scores, topk_ids, *dargs, k=k, list_pad=index.list_pad,
+        chunk=chunk, blk_l=blk_l)
+
+
+def probe_candidates(index: IVFIndex, queries: torch.Tensor,
+                     cids: torch.Tensor, *, use_kernel: bool,
+                     delta: Optional[DeltaView] = None,
+                     delta_scores: Optional[torch.Tensor] = None,
+                     blk_l: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One probe's candidates for ``merge_topk``: each row's (B,) probed
+    cluster scored by the ``ivf_scan`` kernel (``use_kernel``) or
+    ``score_rows``, -inf and id -1 outside the list and on tombstoned
+    rows.  With ``delta`` and its (B, cap) raw ``delta_scores``
+    (``delta_scan``, once a search or a wave) the buffer's entries
+    follow, each live only at the probe of its assigned cluster."""
+    rows, ids, mask = _probe_rows(index, cids)
+    if use_kernel:
+        sc = kops.ivf_scan(queries, index.docs, index.cluster_offsets[cids],
+                           index.cluster_sizes[cids],
+                           list_pad=index.list_pad, blk_l=blk_l)
+    else:
+        sc = score_rows(queries, index.docs, rows)
+    sc = torch.where(mask, sc, float("-inf"))
+    if delta is None:
+        return sc, ids
+    gate = (delta.ids >= 0)[None, :] \
+        & (delta.assign[None, :] == cids[:, None])
+    return (torch.cat([sc, torch.where(gate, delta_scores, float("-inf"))],
+                      1),
+            torch.cat([ids, torch.where(gate, delta.ids, -1)], 1))
 
 
 def search(index: IVFIndex, queries, policy: Policy, *,
@@ -361,42 +430,23 @@ def _search(index: IVFIndex, queries, policy: Policy, *,
     if use_fused_kernel or use_scan_kernel:
         # the kernels trust blk_l-aligned offsets: fail loudly up front
         validate_alignment(index, blk_l=blk_l)
-    queries = _as_queries(queries, dev)
+    queries = as_queries(queries, dev)
     B = queries.shape[0]
     k, N, tau = policy.k, policy.n_probe, policy.tau
     n_rank = min(N, index.n_clusters)
     chunk = max(1, min(chunk, n_rank))
-    lp = index.list_pad
 
     rank_sims, cluster_rank = centroid_rank(index, queries, n_rank,
                                             per_row=features)  # (B, N)
     cluster_rank = cluster_rank.long()
     centroid_sims = rank_sims[:, :tau]
 
+    d_sc = None
     if delta is not None and not use_fused_kernel:
         # one scan of the whole buffer; each entry is *merged* only at
         # the probe of its assigned cluster
         d_sc = kops.delta_scan(queries, delta.vecs) if use_scan_kernel \
             else delta_scan_plain(queries, delta.vecs)          # (B, cap)
-        d_valid = (delta.ids >= 0)[None, :]
-        d_ids = delta.ids[None, :].expand(B, -1)
-
-    def delta_candidates(cids):
-        """(B, cap) delta candidates gated on each query's probe."""
-        gate = d_valid & (delta.assign[None, :] == cids[:, None])
-        return (torch.where(gate, d_sc, float("-inf")),
-                torch.where(gate, d_ids, -1))
-
-    def probe_scores(cids):
-        rows, ids, mask = _probe_rows(index, cids)
-        if use_scan_kernel:
-            sc = kops.ivf_scan(queries, index.docs,
-                               index.cluster_offsets[cids],
-                               index.cluster_sizes[cids], list_pad=lp,
-                               blk_l=blk_l)
-            return torch.where(ids >= 0, sc, float("-inf")), ids
-        sc = score_rows(queries, index.docs, rows)
-        return torch.where(mask, sc, float("-inf")), ids
 
     topk_scores = torch.full((B, k), float("-inf"), device=dev)
     topk_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
@@ -448,34 +498,25 @@ def _search(index: IVFIndex, queries, policy: Policy, *,
     while h < n_rank and bool(active.any()):
         if use_fused_kernel:
             # one fused launch scores+merges the whole probe chunk;
-            # slots past n_rank get size 0 so they merge nothing
+            # slots past n_rank merge nothing
             rel = torch.arange(chunk, device=dev)
             cids = cluster_rank[:, (h + rel).clamp(max=n_rank - 1)]
             slot_ok = (h + rel < n_rank)[None, :]
-            sizes = torch.where(slot_ok, index.cluster_sizes[cids], 0)
-            # the delta buffer rides the kernel as its delta stream;
-            # slots past the budget gate on -2 (an empty slot's assign
-            # is -1, a real cluster id >= 0)
-            dargs = () if delta is None else (
-                *delta, torch.where(slot_ok, cids, -2))
-            snap_s, snap_i, cnts = kops.ivf_scan_merge(
-                queries, index.docs, index.doc_ids,
-                index.cluster_offsets[cids], sizes, topk_scores, topk_ids,
-                *dargs, k=k, list_pad=lp, chunk=chunk, blk_l=blk_l)
+            snap_s, snap_i, cnts = scan_merge_chunk(
+                index, queries, cids, slot_ok, topk_scores, topk_ids, delta,
+                k=k, chunk=chunk, blk_l=blk_l)
             for t in range(chunk):
                 phi = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
                 slot_update(h, snap_s[:, t], snap_i[:, t], phi)
                 h += 1
         else:
             for _ in range(chunk):
-                cids = cluster_rank[:, min(h, n_rank - 1)]
-                new_scores, new_ids = probe_scores(cids)
-                if delta is not None:
-                    e_s, e_i = delta_candidates(cids)
-                    new_scores = torch.cat([new_scores, e_s], 1)
-                    new_ids = torch.cat([new_ids, e_i], 1)
-                m_s, m_i = _merge_topk(topk_scores, topk_ids, new_scores,
-                                       new_ids, k, use_topk_kernel)
+                new_scores, new_ids = probe_candidates(
+                    index, queries, cluster_rank[:, min(h, n_rank - 1)],
+                    use_kernel=use_scan_kernel, delta=delta,
+                    delta_scores=d_sc, blk_l=blk_l)
+                m_s, m_i = merge_topk(topk_scores, topk_ids, new_scores,
+                                      new_ids, k, use_topk_kernel)
                 slot_update(h, m_s, m_i, None)
                 h += 1
     return SearchResult(topk_scores, topk_ids, probes, phi_hist, fm)
@@ -522,7 +563,7 @@ def probe_trace(index: IVFIndex, queries, n_probe: int, k: int, *,
     ``per_row`` ranks the centroids as a learned policy's search does
     (``centroid_rank``)."""
     dev = index_device(index)
-    queries = _as_queries(queries, dev)
+    queries = as_queries(queries, dev)
     B = queries.shape[0]
     n = min(n_probe, index.n_clusters)
     _, cluster_rank = centroid_rank(index, queries, n, per_row=per_row)
@@ -530,10 +571,9 @@ def probe_trace(index: IVFIndex, queries, n_probe: int, k: int, *,
     ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
     traj, phi = [], []
     for h in range(n):
-        rows, tids, mask = _probe_rows(index, cluster_rank[:, h].long())
-        sc = torch.where(mask, score_rows(queries, index.docs, rows),
-                         float("-inf"))
-        scores, new_ids = _merge_topk(scores, ids, sc, tids, k)
+        cids = cluster_rank[:, h].long()
+        sc, tids = probe_candidates(index, queries, cids, use_kernel=False)
+        scores, new_ids = merge_topk(scores, ids, sc, tids, k)
         if h:
             phi.append(intersection_pct(ids, new_ids).cpu().numpy())
         ids = new_ids

@@ -30,12 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike
-from repro_torch.core.ivf import (DeltaView, IVFIndex, _as_queries,
-                                  _is_dead, _merge_topk, _probe_rows,
-                                  _scrub_dead,
+from repro_torch.core.ivf import (DeltaView, IVFIndex, as_queries,
                                   check_same_device, index_device,
-                                  intersection_pct, top_k,
-                                  validate_alignment)
+                                  intersection_pct, merge_topk,
+                                  probe_candidates, scan_merge_chunk,
+                                  scrub_dead, top_k, validate_alignment)
 from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
                                        RUNG_TIGHTEN, DegradationLadder)
 from repro_torch.kernels import ops as kops
@@ -46,17 +45,9 @@ from repro_torch.trace import span
 class LaneState(NamedTuple):
     qvec: torch.Tensor          # (W, d) admitted query vectors
     cluster_rank: torch.Tensor  # (W, N) int64
-    h: torch.Tensor             # (W,) int32 per-lane next probe rank
-    topk_scores: torch.Tensor   # (W, k)
-    topk_ids: torch.Tensor      # (W, k) int32
-    patience: torch.Tensor      # (W,) int32
-    active: torch.Tensor        # (W,) bool — lane holds a live query
+    lanes: Lanes                # what a slot moves: h, patience, active,
+                                # the running top-k
     qid: torch.Tensor           # (W,) int32 external id, -1 empty
-
-
-def _lanes(st: LaneState) -> Lanes:
-    return Lanes(h=st.h, patience=st.patience, active=st.active,
-                 topk_scores=st.topk_scores, topk_ids=st.topk_ids)
 
 
 def _empty_state(w: int, d: int, n: int, k: int,
@@ -66,18 +57,19 @@ def _empty_state(w: int, d: int, n: int, k: int,
     return LaneState(
         qvec=full((w, d), 0.0, torch.float32),
         cluster_rank=full((w, n), 0, torch.int64),
-        h=full((w,), 0, torch.int32),
-        topk_scores=full((w, k), float("-inf"), torch.float32),
-        topk_ids=full((w, k), -1, torch.int32),
-        patience=full((w,), 0, torch.int32),
-        active=full((w,), False, torch.bool),
+        lanes=Lanes(h=full((w,), 0, torch.int32),
+                    patience=full((w,), 0, torch.int32),
+                    active=full((w,), False, torch.bool),
+                    topk_scores=full((w, k), float("-inf"), torch.float32),
+                    topk_ids=full((w, k), -1, torch.int32)),
         qid=full((w,), -1, torch.int32))
 
 
 def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
            new_qid: torch.Tensor, n_probe: int) -> LaneState:
     """Fill empty lanes with up to len(new_q) queries (vectorised)."""
-    free = ~state.active                                  # (W,)
+    ln = state.lanes
+    free = ~ln.active                                     # (W,)
     # slot j of new_q goes to the j-th free lane
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1
     take = free & (free_rank < new_q.shape[0])
@@ -91,12 +83,12 @@ def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
     return LaneState(
         qvec=fill(state.qvec, new_q),
         cluster_rank=fill(state.cluster_rank, rank.long()),
-        h=torch.where(take, 0, state.h),
-        topk_scores=torch.where(take[:, None], float("-inf"),
-                                state.topk_scores),
-        topk_ids=torch.where(take[:, None], -1, state.topk_ids),
-        patience=torch.where(take, 0, state.patience),
-        active=state.active | take,
+        lanes=Lanes(h=torch.where(take, 0, ln.h),
+                    patience=torch.where(take, 0, ln.patience),
+                    active=ln.active | take,
+                    topk_scores=torch.where(take[:, None], float("-inf"),
+                                            ln.topk_scores),
+                    topk_ids=torch.where(take[:, None], -1, ln.topk_ids)),
         qid=torch.where(take, new_qid[src], state.qid))
 
 
@@ -114,16 +106,17 @@ def _advance(index: IVFIndex, state: LaneState,
     ``delta``/``n_probe``); under deadline pressure the degradation
     ladder lowers them per lane, so a struggling lane exits earlier
     while its neighbours run the full policy.  The fused path issues ONE
-    ``ivf_scan_merge`` launch for the whole chunk and ONE ``slot_roll``
-    launch that rolls lane state forward slot by slot from that kernel's
-    per-probe snapshots, so mid-chunk exits land on the exact probe they
-    would on the per-probe path.  Its slots are budgeted by ``n_probe``,
-    not ``lane_cap``: a capped lane's later slots are scanned and then
-    discarded by the slot roll, so fused stays equal to per-probe.  The per-probe path
-    runs the kernel pair (``ivf_scan`` + ``topk_merge``; their plain
-    versions on the CPU): on the card only the pair scores and ranks in
-    the fused kernel's order, so the two paths agree bit for bit there
-    too.
+    ``ivf_scan_merge`` launch for the whole chunk
+    (``core.ivf.scan_merge_chunk``) and ONE ``slot_roll`` launch that
+    rolls lane state forward slot by slot from that kernel's per-probe
+    snapshots, so mid-chunk exits land on the exact probe they would on
+    the per-probe path.  Its slots are budgeted by ``n_probe``, not
+    ``lane_cap``: a capped lane's later slots are scanned and then
+    discarded by the slot roll, so fused stays equal to per-probe.  The
+    per-probe path runs the kernel pair (``core.ivf.probe_candidates``
+    on ``ivf_scan``, then ``topk_merge``; their plain versions on the
+    CPU): on the card only the pair scores and ranks in the fused
+    kernel's order, so the two paths agree bit for bit there too.
 
     ``dview``/``dead`` (live index, ``repro_torch.index``): delta
     entries are scored once per wave — inside the fused kernel, or by
@@ -133,63 +126,43 @@ def _advance(index: IVFIndex, state: LaneState,
     scrubbing running top-k entries deleted after they were merged,
     which lanes that span a version swap need.
     """
+    ln = state.lanes
     if dead is not None:
         # scrub once per wave: a lane's carry may predate a deletion
-        ts0, ti0 = _scrub_dead(state.topk_scores, state.topk_ids, dead)
-        state = state._replace(topk_scores=ts0, topk_ids=ti0)
-
-    if dview is not None:
-        # burn tombstoned buffer entries to id -1 up front: both paths
-        # then mask them exactly like empty slots
-        d_ids_eff = dview.ids if dead is None \
-            else torch.where(_is_dead(dview.ids, dead), -1, dview.ids)
-        if not use_fused:
-            d_sc = kops.delta_scan(state.qvec, dview.vecs)    # (W, cap)
-            d_valid = (d_ids_eff >= 0)[None, :]
-            d_ids = d_ids_eff[None, :].expand(d_sc.shape[0], -1)
+        ts0, ti0 = scrub_dead(ln.topk_scores, ln.topk_ids, dead)
+        ln = ln._replace(topk_scores=ts0, topk_ids=ti0)
+        if dview is not None:
+            # burn tombstoned buffer entries to id -1 up front: both
+            # paths then mask them exactly like empty slots
+            dview = dview.burn_dead(dead)
 
     if use_fused:
-        rel = torch.arange(chunk, device=state.h.device)[None, :]
-        idx = (state.h[:, None] + rel).clamp(0, n_probe - 1)
-        cids = torch.gather(state.cluster_rank, 1, idx.long())
+        rel = torch.arange(chunk, device=ln.h.device)[None, :]
+        slot = ln.h[:, None] + rel
+        cids = torch.gather(state.cluster_rank, 1,
+                            slot.clamp(0, n_probe - 1).long())
         # inactive lanes and slots past the probe budget merge nothing
-        slot_ok = ((state.h[:, None] + rel) < n_probe) \
-            & state.active[:, None]
-        sizes = torch.where(slot_ok, index.cluster_sizes[cids], 0)
-        # the delta buffer rides the kernel as its delta stream, gated
-        # per slot on the assigned cluster (see core.ivf.search)
-        dargs = () if dview is None else (
-            dview.vecs, d_ids_eff, dview.assign,
-            torch.where(slot_ok, cids, -2))
-        snap_s, snap_i, cnts = kops.ivf_scan_merge(
-            state.qvec, index.docs, index.doc_ids,
-            index.cluster_offsets[cids], sizes, state.topk_scores,
-            state.topk_ids, *dargs, k=k, list_pad=index.list_pad,
-            chunk=chunk)
-        return state._replace(**kops.slot_roll(
-            snap_s, snap_i, cnts, _lanes(state), lane_delta, lane_cap, k=k,
-            chunk=chunk, phi=phi)._asdict())
+        slot_ok = (slot < n_probe) & ln.active[:, None]
+        snap_s, snap_i, cnts = scan_merge_chunk(
+            index, state.qvec, cids, slot_ok, ln.topk_scores, ln.topk_ids,
+            dview, k=k, chunk=chunk)
+        return state._replace(lanes=kops.slot_roll(
+            snap_s, snap_i, cnts, ln, lane_delta, lane_cap, k=k,
+            chunk=chunk, phi=phi))
 
-    st = state
+    d_sc = None if dview is None \
+        else kops.delta_scan(state.qvec, dview.vecs)          # (W, cap)
     for _ in range(chunk):
-        hv = st.h.clamp(max=n_probe - 1).long()
-        cids = torch.gather(st.cluster_rank, 1, hv[:, None])[:, 0]
-        _, ids, _ = _probe_rows(index, cids)
-        sc = kops.ivf_scan(st.qvec, index.docs, index.cluster_offsets[cids],
-                           index.cluster_sizes[cids],
-                           list_pad=index.list_pad)
-        sc = torch.where(ids >= 0, sc, float("-inf"))
-        if dview is not None:
-            gate = d_valid & (dview.assign[None, :] == cids[:, None])
-            sc = torch.cat([sc, torch.where(gate, d_sc, float("-inf"))], 1)
-            ids = torch.cat([ids, torch.where(gate, d_ids, -1)], 1)
-        ms, mi = _merge_topk(st.topk_scores, st.topk_ids, sc, ids, k,
-                             use_kernel=True)
-        ti = torch.where(st.active[:, None], mi, st.topk_ids)
-        st = st._replace(**slot_step(
-            _lanes(st), ms, mi, intersection_pct(st.topk_ids, ti), phi=phi,
-            lane_delta=lane_delta, lane_cap=lane_cap)._asdict())
-    return st
+        hv = ln.h.clamp(max=n_probe - 1).long()
+        cids = torch.gather(state.cluster_rank, 1, hv[:, None])[:, 0]
+        sc, ids = probe_candidates(index, state.qvec, cids, use_kernel=True,
+                                   delta=dview, delta_scores=d_sc)
+        ms, mi = merge_topk(ln.topk_scores, ln.topk_ids, sc, ids, k,
+                            use_kernel=True)
+        ti = torch.where(ln.active[:, None], mi, ln.topk_ids)
+        ln = slot_step(ln, ms, mi, intersection_pct(ln.topk_ids, ti),
+                       phi=phi, lane_delta=lane_delta, lane_cap=lane_cap)
+    return state._replace(lanes=ln)
 
 
 #: ordering of degradation reasons — a stronger rung overwrites a weaker
@@ -247,6 +220,53 @@ class _HostReads:
             self.wait_ms += 1e3 * (time.perf_counter() - t0)
         self.count += 1
         return out
+
+
+class _Call:
+    """The bookkeeping of one ``serve()`` call: the ``ServeReport`` it
+    fills as the waves go (answers, reasons, latency, the wave-cost EMA,
+    the counters), the host's copy of the lanes and the device-to-host
+    reads; :meth:`report` completes the report."""
+
+    def __init__(self, w: int, deadline_ms: Optional[float]):
+        self.rep = ServeReport({}, {}, 0, 0.0, 0, deadline_ms=deadline_ms)
+        self.lane_admit = np.zeros(w, np.float64)   # admit timestamp, ms
+        self.prev_active = np.zeros(w, bool)
+        # qid is constant across an advance: the qids read after
+        # admission are the lanes' qids at the next wave's top
+        self.prev_qids = np.full(w, -1, np.int32)
+        self.next_q = 0                             # first queued query
+        self.occ: List[float] = []                  # busy share a wave
+        self.read = _HostReads()
+
+    def flag(self, qid: int, reason: str) -> None:
+        old = self.rep.degraded.get(qid)
+        if old is None or _REASON_RANK[reason] > _REASON_RANK[old]:
+            self.rep.degraded[qid] = reason
+
+    def answer(self, qids, ids: np.ndarray, probes, latency,
+               reason: Optional[str] = None) -> None:
+        """Record the answers of ``qids``: row j of ``ids`` and entry j
+        of ``probes`` and ``latency`` (ms) are query j's; ``reason``,
+        if given, flags each of them degraded."""
+        rep = self.rep
+        for j, qid in enumerate(qids):
+            qid = int(qid)
+            rep.results[qid] = ids[j]
+            rep.probes[qid] = int(probes[j])
+            rep.latency_ms[qid] = latency[j]
+            if reason is not None:
+                self.flag(qid, reason)
+
+    def report(self, wave_slots: int) -> ServeReport:
+        """The completed report; ``wave_slots`` lane-probe slots are
+        spent a wave."""
+        rep = self.rep
+        rep.occupancy = float(np.mean(self.occ)) if self.occ else 0.0
+        rep.lane_steps = rep.waves * wave_slots
+        rep.host_syncs = self.read.count
+        rep.sync_wait_ms = self.read.wait_ms
+        return rep
 
 
 class WaveScheduler:
@@ -314,25 +334,26 @@ class WaveScheduler:
         self.rebuilder = rebuilder
         self._pinned = None        # version lanes are probing against
 
-    def _refresh_pin(self, active_any: bool) -> Tuple[bool, bool]:
+    def _pin(self, call: _Call, active_any: bool) -> bool:
         """Adopt the registry's current version if lanes allow it.
 
         Same-epoch updates (merge_delta, mutations) adopt at once — the
         wave-granular swap mid-flight lanes tolerate.  A higher-epoch
         version only lands once no lane is active; until then the
-        scheduler reports *drain* and the caller stops admitting.
-        Returns ``(draining, swapped)``.
+        scheduler *drains* and the caller stops admitting.  Returns
+        whether it drains; counts swaps and drain waves on ``call``.
         """
         if self.registry is None:
-            return False, False
+            return False
         cur = self.registry.current()
-        if cur.epoch == self._pinned.epoch:
-            self._pinned = cur
-            return False, False
-        if active_any:
-            return True, False     # drain: finish lanes on the old epoch
+        swap = cur.epoch != self._pinned.epoch
+        if swap and active_any:
+            # drain: finish lanes on the old epoch
+            call.rep.drain_waves += 1
+            return True
+        call.rep.epoch_swaps += swap
         self._pinned = cur
-        return False, True
+        return False
 
     def _version(self):
         if self.registry is None:
@@ -341,12 +362,6 @@ class WaveScheduler:
         check_same_device(self.device, "a published version",
                           ver.index.docs)
         return ver.index, ver.delta, ver.dead
-
-    @staticmethod
-    def _flag(degraded: Dict[int, str], qid: int, reason: str) -> None:
-        old = degraded.get(qid)
-        if old is None or _REASON_RANK[reason] > _REASON_RANK[old]:
-            degraded[qid] = reason
 
     def serve(self, queries, *, compact: bool = True,
               on_wave: Optional[Callable[[int], None]] = None
@@ -365,167 +380,166 @@ class WaveScheduler:
 
     def _serve(self, queries, compact: bool,
                on_wave: Optional[Callable[[int], None]]) -> ServeReport:
-        read = _HostReads()
-        queries = _as_queries(queries, self.device)
+        """The wave loop: each wave harvests exits, pins a version, walks
+        the deadline ladder, admits queued queries, advances the lanes
+        and runs the hook, then one rebuild stage."""
+        call = _Call(self.w, self.deadline_ms)
+        queries = as_queries(queries, self.device)
         nq, d = queries.shape
         state = _empty_state(self.w, d, self.n, self.k, self.device)
-        next_q = 0
-        results: Dict[int, np.ndarray] = {}
-        probes: Dict[int, int] = {}
-        degraded: Dict[int, str] = {}
-        latency: Dict[int, float] = {}
-        waves = 0
-        occ = []
-        lane_steps = 0
-        epoch_swaps = drain_waves = 0
-        rebuild_ticks = rebuild_throttled = 0
-        prev_active = np.zeros(self.w, bool)
-        # qid is constant across an advance: the qids read after
-        # admission are the lanes' qids at the next wave's top
-        prev_qids = np.full(self.w, -1, np.int32)
-        lane_admit = np.zeros(self.w, np.float64)   # admit timestamp, ms
-        full_delta = torch.full((self.w,), self.delta, dtype=torch.int32,
+        # the exit knobs (lane_delta, lane_cap) of a lane under no pressure
+        full = tuple(torch.full((self.w,), v, dtype=torch.int32,
                                 device=self.device)
-        full_cap = torch.full((self.w,), self.n, dtype=torch.int32,
-                              device=self.device)
-        wave_cost = 0.0                              # EMA of wave ms
-        hook_ms = 0.0
+                     for v in (self.delta, self.n))
         self._pinned = None if self.registry is None \
             else self.registry.current()
         while True:
-            with span("serve.harvest"):
-                active = read(state.active)
-                now = self._now()
-                # harvest exits: lanes that flipped active->inactive
-                done = np.nonzero(prev_active & ~active)[0]
-                if done.size:
-                    lanes = torch.as_tensor(done, device=self.device)
-                    ids = read(state.topk_ids[lanes])
-                    hs = read(state.h[lanes])
-                    for j, lane in enumerate(done):
-                        qid = int(prev_qids[lane])
-                        results[qid] = ids[j]
-                        probes[qid] = int(hs[j])
-                        latency[qid] = now - lane_admit[lane]
-            # epoch-fenced version adoption
-            draining, swapped = self._refresh_pin(bool(active.any()))
-            epoch_swaps += swapped
-            drain_waves += draining
-            # degradation ladder (deadline-budgeted serving)
-            lane_delta, lane_cap = full_delta, full_cap
-            if self.deadline_ms is not None:
-                remaining = self.deadline_ms - (now - lane_admit)
-                rungs = self.ladder.rungs(remaining, max(wave_cost, 1e-9))
-                rungs = np.where(active, rungs, RUNG_NONE)
-                if (rungs > RUNG_NONE).any():
-                    # one read of h a wave, one of the forced lanes' top-k
-                    h_np = read(state.h)
-                    force = active & (rungs == RUNG_FORCE)
-                    if force.any():
-                        lanes = np.nonzero(force)[0]
-                        tid = read(state.topk_ids[torch.as_tensor(
-                            lanes, device=self.device)])
-                        for j, lane in enumerate(lanes):
-                            qid = int(prev_qids[lane])
-                            results[qid] = tid[j]
-                            probes[qid] = int(h_np[lane])
-                            latency[qid] = now - lane_admit[lane]
-                            self._flag(degraded, qid, "forced_exit")
-                        active = active & ~force
-                        state = state._replace(active=torch.as_tensor(
-                            active, device=self.device))
-                    for lane in np.nonzero(active
-                                           & (rungs >= RUNG_TIGHTEN))[0]:
-                        self._flag(degraded, int(prev_qids[lane]),
-                                   "capped_probes" if rungs[lane] >= RUNG_CAP
-                                   else "tightened_patience")
-                    afford = np.floor(
-                        np.maximum(remaining, 0.0)
-                        / max(wave_cost, 1e-9)).astype(np.int64) \
-                        * self.chunk
-                    cap_np = np.where(rungs >= RUNG_CAP, h_np + afford,
-                                      self.n)
-                    cap_np = np.minimum(cap_np, self.n).astype(np.int32)
-                    tight = min(self.ladder.tight_delta, self.delta)
-                    delta_np = np.where(rungs >= RUNG_TIGHTEN, tight,
-                                        self.delta).astype(np.int32)
-                    lane_delta = torch.as_tensor(delta_np,
-                                                 device=self.device)
-                    lane_cap = torch.as_tensor(cap_np, device=self.device)
-            index, dview, dead = self._version()
-            # admission (with overload shedding)
+            active, now = self._harvest(call, state)
+            draining = self._pin(call, bool(active.any()))
+            state, active, knobs = self._degrade(call, state, active, now,
+                                                 full)
+            version = self._version()
             if (compact or not active.any()) and not draining \
-                    and next_q < nq and (~active).any():
-                room = int((~active).sum())
-                if self.deadline_ms is not None \
-                        and wave_cost > self.deadline_ms:
-                    # even a fresh query cannot meet the deadline: shed
-                    # instead of admitting to certain death
-                    for qid in range(next_q, min(nq, next_q + room)):
-                        results[qid] = np.full(self.k, -1, np.int32)
-                        probes[qid] = 0
-                        latency[qid] = 0.0
-                        self._flag(degraded, qid, "shed")
-                    next_q = min(nq, next_q + room)
-                else:
-                    with span("serve.admit"):
-                        batch = queries[next_q: next_q + room]
-                        qids = torch.arange(next_q,
-                                            next_q + batch.shape[0],
-                                            dtype=torch.int32,
-                                            device=self.device)
-                        # admissions rank clusters against the epoch
-                        # they probe
-                        before = active
-                        state = _admit(state, index.centroids, batch,
-                                       qids, self.n)
-                        next_q += batch.shape[0]
-                        active = read(state.active)
-                        lane_admit[active & ~before] = now
-            if not active.any() and next_q >= nq:
+                    and call.next_q < nq and (~active).any():
+                state, active = self._admit_queued(
+                    call, state, active, queries, version[0].centroids, now)
+            if not active.any() and call.next_q >= nq:
                 break
-            occ.append(active.mean())
-            lane_steps += self.w * self.chunk
-            prev_active = active
-            prev_qids = read(state.qid)
-            with span("serve.advance"):
-                state = _advance(index, state, dview, dead,
-                                 lane_delta=lane_delta, lane_cap=lane_cap,
-                                 chunk=self.chunk, k=self.k,
-                                 n_probe=self.n, phi=self.phi,
-                                 use_fused=self.use_fused)
-            waves += 1
-            if on_wave is not None:
-                t_hook = time.perf_counter()
-                with span("serve.hook"):
-                    on_wave(waves)
-                hook_ms += 1e3 * (time.perf_counter() - t_hook)
-            sample = self._now() - now
-            wave_cost = sample if waves == 1 \
-                else 0.5 * wave_cost + 0.5 * sample
-            # background rebuild tick (throttled under pressure), after
-            # the wave-cost sample so the stall never inflates the EMA
-            # the ladder budgets against
-            if self.rebuilder is not None and self.rebuilder.active:
-                throttle = False
-                if self.deadline_ms is not None:
-                    act_now = read(state.active)
-                    rem = (self.deadline_ms
-                           - (self._now() - lane_admit))[act_now]
-                    throttle = self.ladder.throttle_rebuild(
-                        rem, max(wave_cost, 1e-9))
-                if throttle:
-                    rebuild_throttled += 1
-                else:
-                    self.rebuilder.tick()
-                    rebuild_ticks += 1
-        return ServeReport(results, probes, waves,
-                           float(np.mean(occ)) if occ else 0.0, lane_steps,
-                           degraded=degraded, latency_ms=latency,
-                           deadline_ms=self.deadline_ms,
-                           wave_cost_ms=wave_cost, epoch_swaps=epoch_swaps,
-                           drain_waves=drain_waves,
-                           rebuild_ticks=rebuild_ticks,
-                           rebuild_throttled=rebuild_throttled,
-                           host_syncs=read.count,
-                           sync_wait_ms=read.wait_ms, hook_ms=hook_ms)
+            state = self._advance_wave(call, state, active, version, knobs,
+                                       on_wave, now)
+            self._rebuild_tick(call, state)
+        return call.report(self.w * self.chunk)
+
+    def _harvest(self, call: _Call, state: LaneState
+                 ) -> Tuple[np.ndarray, float]:
+        """Read which lanes are active, take the wave's clock reading
+        and answer the lanes that went inactive in the last advance.
+        Returns (active, now)."""
+        with span("serve.harvest"):
+            active = call.read(state.lanes.active)
+            now = self._now()
+            done = np.nonzero(call.prev_active & ~active)[0]
+            if done.size:
+                lanes = torch.as_tensor(done, device=self.device)
+                ids = call.read(state.lanes.topk_ids[lanes])
+                call.answer(call.prev_qids[done], ids,
+                            call.read(state.lanes.h[lanes]),
+                            now - call.lane_admit[done])
+        return active, now
+
+    def _degrade(self, call: _Call, state: LaneState, active: np.ndarray,
+                 now: float, full: Tuple[torch.Tensor, torch.Tensor]
+                 ) -> Tuple[LaneState, np.ndarray,
+                            Tuple[torch.Tensor, torch.Tensor]]:
+        """The degradation ladder of a deadline-budgeted serve: force
+        out the lanes at the last rung with their partial top-k, flag
+        the rest, and lower their patience and probe budget.  Returns
+        the lanes, the host's active mask and the (lane_delta,
+        lane_cap) knobs; ``full`` where no lane is under pressure."""
+        if self.deadline_ms is None:
+            return state, active, full
+        remaining = self.deadline_ms - (now - call.lane_admit)
+        cost = max(call.rep.wave_cost_ms, 1e-9)
+        rungs = np.where(active, self.ladder.rungs(remaining, cost),
+                         RUNG_NONE)
+        if not (rungs > RUNG_NONE).any():
+            return state, active, full
+        # one read of h a wave, one of the forced lanes' top-k
+        h_np = call.read(state.lanes.h)
+        force = active & (rungs == RUNG_FORCE)
+        if force.any():
+            lanes = np.nonzero(force)[0]
+            tid = call.read(state.lanes.topk_ids[torch.as_tensor(
+                lanes, device=self.device)])
+            call.answer(call.prev_qids[lanes], tid, h_np[lanes],
+                        now - call.lane_admit[lanes], "forced_exit")
+            active = active & ~force
+            state = state._replace(lanes=state.lanes._replace(
+                active=torch.as_tensor(active, device=self.device)))
+        for lane in np.nonzero(active & (rungs >= RUNG_TIGHTEN))[0]:
+            call.flag(int(call.prev_qids[lane]),
+                      "capped_probes" if rungs[lane] >= RUNG_CAP
+                      else "tightened_patience")
+        afford = np.floor(np.maximum(remaining, 0.0) / cost) \
+            .astype(np.int64) * self.chunk
+        cap_np = np.where(rungs >= RUNG_CAP, h_np + afford, self.n)
+        cap_np = np.minimum(cap_np, self.n).astype(np.int32)
+        tight = min(self.ladder.tight_delta, self.delta)
+        delta_np = np.where(rungs >= RUNG_TIGHTEN, tight,
+                            self.delta).astype(np.int32)
+        return state, active, (torch.as_tensor(delta_np, device=self.device),
+                               torch.as_tensor(cap_np, device=self.device))
+
+    def _admit_queued(self, call: _Call, state: LaneState,
+                      active: np.ndarray, queries: torch.Tensor,
+                      centroids: torch.Tensor, now: float
+                      ) -> Tuple[LaneState, np.ndarray]:
+        """Fill the free lanes from the queue, ranking clusters against
+        the epoch they will probe; under a deadline no wave can meet,
+        shed them instead.  Returns the lanes and the active mask."""
+        room = int((~active).sum())
+        if self.deadline_ms is not None \
+                and call.rep.wave_cost_ms > self.deadline_ms:
+            # even a fresh query cannot meet the deadline: shed
+            # instead of admitting to certain death
+            n = min(len(queries) - call.next_q, room)
+            call.answer(range(call.next_q, call.next_q + n),
+                        np.full((n, self.k), -1, np.int32), [0] * n,
+                        [0.0] * n, "shed")
+            call.next_q += n
+            return state, active
+        with span("serve.admit"):
+            batch = queries[call.next_q: call.next_q + room]
+            qids = torch.arange(call.next_q, call.next_q + batch.shape[0],
+                                dtype=torch.int32, device=self.device)
+            state = _admit(state, centroids, batch, qids, self.n)
+            call.next_q += batch.shape[0]
+            admitted = call.read(state.lanes.active)
+            call.lane_admit[admitted & ~active] = now
+        return state, admitted
+
+    def _advance_wave(self, call: _Call, state: LaneState,
+                      active: np.ndarray, version, knobs, on_wave,
+                      now: float) -> LaneState:
+        """Advance the lanes by one chunk against the pinned ``version``
+        with the (lane_delta, lane_cap) ``knobs``, run ``on_wave`` and
+        fold the wave's host ms into the wave-cost EMA."""
+        call.occ.append(active.mean())
+        call.prev_active = active
+        call.prev_qids = call.read(state.qid)
+        index, dview, dead = version
+        lane_delta, lane_cap = knobs
+        with span("serve.advance"):
+            state = _advance(index, state, dview, dead,
+                             lane_delta=lane_delta, lane_cap=lane_cap,
+                             chunk=self.chunk, k=self.k, n_probe=self.n,
+                             phi=self.phi, use_fused=self.use_fused)
+        call.rep.waves += 1
+        if on_wave is not None:
+            t_hook = time.perf_counter()
+            with span("serve.hook"):
+                on_wave(call.rep.waves)
+            call.rep.hook_ms += 1e3 * (time.perf_counter() - t_hook)
+        sample = self._now() - now
+        call.rep.wave_cost_ms = sample if call.rep.waves == 1 \
+            else 0.5 * call.rep.wave_cost_ms + 0.5 * sample
+        return state
+
+    def _rebuild_tick(self, call: _Call, state: LaneState) -> None:
+        """One background rebuild stage, after the wave-cost sample so
+        the stall never inflates the EMA the ladder budgets against;
+        skipped (throttled) while a lane is close to its deadline."""
+        if self.rebuilder is None or not self.rebuilder.active:
+            return
+        throttle = False
+        if self.deadline_ms is not None:
+            act_now = call.read(state.lanes.active)
+            rem = (self.deadline_ms
+                   - (self._now() - call.lane_admit))[act_now]
+            throttle = self.ladder.throttle_rebuild(
+                rem, max(call.rep.wave_cost_ms, 1e-9))
+        if throttle:
+            call.rep.rebuild_throttled += 1
+        else:
+            self.rebuilder.tick()
+            call.rep.rebuild_ticks += 1

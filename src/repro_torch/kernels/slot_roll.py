@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 
 
 class Lanes(NamedTuple):
-    """The lane fields a slot moves (``core.serving.LaneState``'s)."""
+    """The lane fields a slot moves (``core.serving.LaneState.lanes``)."""
     h: torch.Tensor             # (W,) int32 probes taken
     patience: torch.Tensor      # (W,) int32
     active: torch.Tensor        # (W,) bool
