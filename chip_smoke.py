@@ -30,7 +30,9 @@ a line of its own:
    on a 1M-document synthetic corpus: build the index on the card,
    serve 1,024 queries through the wave scheduler (one fused
    ``ivf_scan_merge`` launch per chunk, one ``slot_roll`` launch a wave,
-   one ``row_topk`` launch per admission), and check it against fused
+   one ``row_topk`` launch per admission; host reads a wave printed, at
+   most one read of ``active`` and one wait for the exits' copy), and
+   check it against fused
    ``search``, the per-probe kernel pair and brute force;
 3b. the learned exit stages on that index (``learned_train``,
    ``learned_search``, ``learned_fused_vs_pair``, ``learned_features``):
@@ -4120,7 +4122,13 @@ def main() -> None:
             raise AssertionError(f"{counts['slot_roll']} slot_roll launches "
                                  f"in {rep.waves} waves")
         print(f"serve: {len(admits)} admissions of {min(admits)} to "
-              f"{max(admits)} queries, one row_topk launch each")
+              f"{max(admits)} queries, one row_topk launch each; "
+              f"{rep.host_syncs} host reads in {rep.waves} waves "
+              f"({rep.host_syncs / rep.waves:.4f} a wave)")
+        # one read of active a harvest, one wait a harvest's exits
+        if rep.host_syncs > 2 * rep.waves + 1:
+            raise AssertionError(f"{rep.host_syncs} host reads in "
+                                 f"{rep.waves} waves")
         served = np.stack([rep.results[i] for i in range(N_QUERIES)])
         probes = np.array([rep.probes[i] for i in range(N_QUERIES)])
         summ = metrics.summarize(served, probes, exact, corpus.relevant,

@@ -6,9 +6,12 @@ The scheduler advances a wave of W lanes by fixed probe chunks, then
 per query approaches the paper's mean C instead of the batch's max C.
 Lane state is a tuple of (W, ...) tensors on the index's device;
 admission and the chunk advance are tensor ops there, and the host loop
-only moves query ids.  The fused path advances a wave with ONE
-``ivf_scan_merge`` launch per chunk, the live index's delta buffer
-riding it as its delta stream, and ONE ``slot_roll`` launch.
+only moves query ids: it blocks once a wave, on the lanes' ``active``
+mask, derives admission from its own copy of the lanes, and records a
+wave's exits while the card runs the next advance.  The fused path
+advances a wave with ONE ``ivf_scan_merge`` launch per chunk, the live
+index's delta buffer riding it as its delta stream, and ONE
+``slot_roll`` launch.
 
 With a version registry (``repro_torch.index.IndexRegistry``) the
 scheduler serves the live index: it adopts the registry's current
@@ -182,8 +185,9 @@ class ServeReport:
     latency_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
     deadline_ms: Optional[float] = None
     # EMA of a wave's host ms, from the clock read after the wave's first
-    # device read to the return of _advance and on_wave: the wave's
-    # advance on the device is not waited for
+    # device read to the return of _advance, the recording of the last
+    # harvest's exits and on_wave: the wave's advance on the device is
+    # not waited for
     wave_cost_ms: float = 0.0
     # -- background rebuild accounting (zero without a rebuilder) --
     epoch_swaps: int = 0        # higher-epoch versions adopted (drained)
@@ -191,7 +195,7 @@ class ServeReport:
     rebuild_ticks: int = 0      # rebuild stages run between waves
     rebuild_throttled: int = 0  # ticks skipped under deadline pressure
     # -- device-to-host reads (each waits for the device's queued work) --
-    host_syncs: int = 0         # reads made
+    host_syncs: int = 0         # reads and waits for a copy made
     sync_wait_ms: float = 0.0   # host ms spent in them
     # -- the on_wave hook: host ms spent in it (0.0 without a hook) --
     hook_ms: float = 0.0
@@ -205,39 +209,65 @@ class ServeReport:
 
 
 class _HostReads:
-    """The device-to-host reads of one ``serve()`` call: each is a
-    ``serve.sync`` span, counted, and timed on the host clock (the wait
-    for the device's queued work and the copy)."""
+    """The device-to-host reads of one ``serve()`` call.  :meth:`stage`
+    enqueues a tensor's copy to pinned host memory behind an event and
+    does not block; :meth:`wait` waits for the event and returns the
+    copy as an array of its own.  Each wait is a ``serve.sync`` span,
+    counted, and timed on the host clock (the wait for the device's
+    queued work and the copy).  Off the card the tensor is on the host
+    already and there is no event."""
 
     def __init__(self):
         self.count = 0
         self.wait_ms = 0.0
 
-    def __call__(self, t: torch.Tensor) -> np.ndarray:
+    @staticmethod
+    def stage(t: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        if not t.is_cuda:
+            return t, None
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(t.device))
+        return out, event
+
+    def wait(self, staged: Tuple[torch.Tensor, Optional[torch.cuda.Event]]
+             ) -> np.ndarray:
+        out, event = staged
         with span("serve.sync"):
             t0 = time.perf_counter()
-            out = t.cpu().numpy()
+            if event is not None:
+                event.synchronize()
+            # its own memory: the pinned block goes back to the pool
+            arr = out.numpy().copy()
             self.wait_ms += 1e3 * (time.perf_counter() - t0)
         self.count += 1
-        return out
+        return arr
+
+    def __call__(self, t: torch.Tensor) -> np.ndarray:
+        return self.wait(self.stage(t))
 
 
 class _Call:
     """The bookkeeping of one ``serve()`` call: the ``ServeReport`` it
     fills as the waves go (answers, reasons, latency, the wave-cost EMA,
-    the counters), the host's copy of the lanes and the device-to-host
-    reads; :meth:`report` completes the report."""
+    the counters), the host's copy of the lanes, the device-to-host
+    reads and the exits staged for recording; :meth:`report` completes
+    the report."""
 
     def __init__(self, w: int, deadline_ms: Optional[float]):
         self.rep = ServeReport({}, {}, 0, 0.0, 0, deadline_ms=deadline_ms)
         self.lane_admit = np.zeros(w, np.float64)   # admit timestamp, ms
-        self.prev_active = np.zeros(w, bool)
-        # qid is constant across an advance: the qids read after
-        # admission are the lanes' qids at the next wave's top
-        self.prev_qids = np.full(w, -1, np.int32)
+        self.prev_active = np.zeros(w, bool)        # active at the advance
+        self.prev_active_dev: Optional[torch.Tensor] = None  # its tensor
+        # the lanes' qids as admission set them (``_admit``'s rule)
+        self.lane_qid = np.full(w, -1, np.int32)
         self.next_q = 0                             # first queued query
         self.occ: List[float] = []                  # busy share a wave
         self.read = _HostReads()
+        # (staged rows, qids, latency ms) of the exits a harvest staged
+        self.exits: Optional[tuple] = None
 
     def flag(self, qid: int, reason: str) -> None:
         old = self.rep.degraded.get(qid)
@@ -250,13 +280,37 @@ class _Call:
         of ``probes`` and ``latency`` (ms) are query j's; ``reason``,
         if given, flags each of them degraded."""
         rep = self.rep
-        for j, qid in enumerate(qids):
-            qid = int(qid)
-            rep.results[qid] = ids[j]
-            rep.probes[qid] = int(probes[j])
-            rep.latency_ms[qid] = latency[j]
-            if reason is not None:
+        qids = np.asarray(qids).tolist()
+        rep.results.update(zip(qids, ids))
+        rep.probes.update(zip(qids, np.asarray(probes).tolist()))
+        rep.latency_ms.update(zip(qids, np.asarray(latency).tolist()))
+        if reason is not None:
+            for qid in qids:
                 self.flag(qid, reason)
+
+    def stage_exits(self, lanes: Lanes, done: np.ndarray,
+                    now: float) -> None:
+        """Enqueue the answers of the exited lanes ``done`` without
+        waiting: one gather of their top-k ids and probe counts into an
+        (n, k + 1) int32 tensor, staged for a read.  The lanes are found
+        on the device, in ``done``'s ascending order.  Their qids and
+        latencies are taken now, before admission overwrites the
+        lanes."""
+        sel = torch.nonzero_static(self.prev_active_dev & ~lanes.active,
+                                   size=done.size)[:, 0]
+        rows = torch.cat([lanes.topk_ids, lanes.h[:, None]], 1)[sel]
+        self.exits = (self.read.stage(rows), self.lane_qid[done],
+                      now - self.lane_admit[done])
+
+    def record_exits(self) -> None:
+        """Wait for the staged exits' copy and record their answers."""
+        if self.exits is None:
+            return
+        staged, qids, latency = self.exits
+        self.exits = None
+        with span("serve.answer"):
+            out = self.read.wait(staged)
+            self.answer(qids, out[:, :-1], out[:, -1], latency)
 
     def report(self, wave_slots: int) -> ServeReport:
         """The completed report; ``wave_slots`` lane-probe slots are
@@ -370,9 +424,10 @@ class WaveScheduler:
         ``w`` (1-based) — the hook a mutation stream publishes from.
 
         Under a torch profiler the call is a ``serve`` span holding
-        ``serve.harvest``, ``serve.admit`` and ``serve.advance`` spans,
-        and every device-to-host read is a ``serve.sync`` span
-        (``repro_torch.trace``); each ``on_wave`` call is a
+        ``serve.harvest``, ``serve.admit``, ``serve.advance`` and
+        ``serve.answer`` (the recording of a harvest's exits) spans, and
+        every device-to-host read or wait for a copy is a ``serve.sync``
+        span (``repro_torch.trace``); each ``on_wave`` call is a
         ``serve.hook`` span, and ``ServeReport.hook_ms`` sums its host
         ms."""
         with span("serve"):
@@ -408,23 +463,21 @@ class WaveScheduler:
             state = self._advance_wave(call, state, active, version, knobs,
                                        on_wave, now)
             self._rebuild_tick(call, state)
+        call.record_exits()         # the last harvest's
         return call.report(self.w * self.chunk)
 
     def _harvest(self, call: _Call, state: LaneState
                  ) -> Tuple[np.ndarray, float]:
-        """Read which lanes are active, take the wave's clock reading
-        and answer the lanes that went inactive in the last advance.
-        Returns (active, now)."""
+        """Read which lanes are active, the wave's one blocking read, take
+        the wave's clock reading and stage the answers of the lanes that
+        went inactive in the last advance (``_advance_wave`` records
+        them).  Returns (active, now)."""
         with span("serve.harvest"):
             active = call.read(state.lanes.active)
             now = self._now()
             done = np.nonzero(call.prev_active & ~active)[0]
             if done.size:
-                lanes = torch.as_tensor(done, device=self.device)
-                ids = call.read(state.lanes.topk_ids[lanes])
-                call.answer(call.prev_qids[done], ids,
-                            call.read(state.lanes.h[lanes]),
-                            now - call.lane_admit[done])
+                call.stage_exits(state.lanes, done, now)
         return active, now
 
     def _degrade(self, call: _Call, state: LaneState, active: np.ndarray,
@@ -451,13 +504,13 @@ class WaveScheduler:
             lanes = np.nonzero(force)[0]
             tid = call.read(state.lanes.topk_ids[torch.as_tensor(
                 lanes, device=self.device)])
-            call.answer(call.prev_qids[lanes], tid, h_np[lanes],
+            call.answer(call.lane_qid[lanes], tid, h_np[lanes],
                         now - call.lane_admit[lanes], "forced_exit")
             active = active & ~force
             state = state._replace(lanes=state.lanes._replace(
                 active=torch.as_tensor(active, device=self.device)))
         for lane in np.nonzero(active & (rungs >= RUNG_TIGHTEN))[0]:
-            call.flag(int(call.prev_qids[lane]),
+            call.flag(int(call.lane_qid[lane]),
                       "capped_probes" if rungs[lane] >= RUNG_CAP
                       else "tightened_patience")
         afford = np.floor(np.maximum(remaining, 0.0) / cost) \
@@ -490,23 +543,30 @@ class WaveScheduler:
             return state, active
         with span("serve.admit"):
             batch = queries[call.next_q: call.next_q + room]
-            qids = torch.arange(call.next_q, call.next_q + batch.shape[0],
+            n = batch.shape[0]
+            qids = torch.arange(call.next_q, call.next_q + n,
                                 dtype=torch.int32, device=self.device)
             state = _admit(state, centroids, batch, qids, self.n)
-            call.next_q += batch.shape[0]
-            admitted = call.read(state.lanes.active)
-            call.lane_admit[admitted & ~active] = now
+            # _admit's rule on the host: the j-th free lane takes query
+            # next_q + j, so nothing need be read back
+            take = np.nonzero(~active)[0][:n]
+            call.lane_qid[take] = np.arange(call.next_q, call.next_q + n)
+            call.lane_admit[take] = now
+            call.next_q += n
+            admitted = active.copy()
+            admitted[take] = True
         return state, admitted
 
     def _advance_wave(self, call: _Call, state: LaneState,
                       active: np.ndarray, version, knobs, on_wave,
                       now: float) -> LaneState:
         """Advance the lanes by one chunk against the pinned ``version``
-        with the (lane_delta, lane_cap) ``knobs``, run ``on_wave`` and
-        fold the wave's host ms into the wave-cost EMA."""
+        with the (lane_delta, lane_cap) ``knobs``, record the last
+        harvest's exits while the card runs the advance, run ``on_wave``
+        and fold the wave's host ms into the wave-cost EMA."""
         call.occ.append(active.mean())
         call.prev_active = active
-        call.prev_qids = call.read(state.qid)
+        call.prev_active_dev = state.lanes.active
         index, dview, dead = version
         lane_delta, lane_cap = knobs
         with span("serve.advance"):
@@ -515,6 +575,7 @@ class WaveScheduler:
                              chunk=self.chunk, k=self.k, n_probe=self.n,
                              phi=self.phi, use_fused=self.use_fused)
         call.rep.waves += 1
+        call.record_exits()
         if on_wave is not None:
             t_hook = time.perf_counter()
             with span("serve.hook"):

@@ -3,21 +3,29 @@
 nest, ``ServeReport.host_syncs`` against the spans and a hand count,
 the same answers with the profiler on and off, and no span entered
 with it off; the live write path's spans under a hook, and
-``ServeReport.hook_ms``."""
+``ServeReport.hook_ms``.  On the card (``-m gpu``): the fused serve
+blocks once a harvest and waits once for each harvest's exits.
+
+The gpu case runs on the card without JAX:
+``PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_trace.py``.
+"""
 import time
+import warnings
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 import repro_torch.trace
+from repro_torch.core import serving
 from repro_torch.core.ivf import build_index
 from repro_torch.core.serving import WaveScheduler
 from repro_torch.data.synthetic import clustered_corpus
 from repro_torch.index import IndexRegistry, LiveIndex, version_of
 from repro_torch.runtime.chaos import SimClock
 
-PHASES = ("serve.harvest", "serve.admit", "serve.advance")
+PHASES = ("serve.harvest", "serve.admit", "serve.advance", "serve.answer")
 LIVE_SPANS = ("serve.hook", "live.add", "live.delete", "live.merge",
               "live.merge.layout", "live.merge.mirrors", "registry.publish")
 _CFG = dict(wave_size=16, chunk=4, k=10, n_probe=16, delta=3, phi=90.0)
@@ -75,6 +83,10 @@ def test_spans_nest_and_count_the_host_reads(index, corpus, deadline):
     # one harvest a wave, and the last one that finds every lane idle
     assert names.count("serve.harvest") == waves + len(reps)
     assert names.count("serve.sync") == sum(r.host_syncs for r in reps)
+    if deadline is None:
+        # one read of active a harvest, one wait a harvest's exits
+        assert names.count("serve.answer") == sum(
+            r.host_syncs for r in reps) - names.count("serve.harvest")
     for i, (n, _, _) in enumerate(spans):
         parent = _innermost_parent(spans, i)
         if n == "serve":
@@ -92,12 +104,16 @@ def test_spans_nest_and_count_the_host_reads(index, corpus, deadline):
 
 
 @pytest.mark.parametrize("lanes,n_queries,waves,syncs", [
-    # one lane's query needs two 4-probe waves: admit, advance, advance,
-    # harvest: reads active+active+qid, active+qid, active+topk+h
-    (4, 1, 2, 8),
+    # one read of active a harvest (each wave's and the last) and one
+    # wait for the copy of each harvest's exits; admission's active mask
+    # and the lanes' qids are derived on the host, not read.  One lane's
+    # query needs two 4-probe waves: harvest, admit, advance; harvest,
+    # advance; harvest (it exited), wait: active, active, active+wait
+    (4, 1, 2, 4),
     # two lanes, four queries of two waves each: the second pair is
-    # admitted in the wave that harvests the first
-    (2, 4, 4, 15),
+    # admitted in the wave that harvests the first.  Five harvests read
+    # active; the 3rd and the 5th find two exits each: 5 reads, 2 waits
+    (2, 4, 4, 7),
 ])
 def test_host_syncs_equal_a_hand_count(index, corpus, lanes, n_queries,
                                        waves, syncs):
@@ -186,3 +202,50 @@ def test_hook_ms_sums_the_hook(index, corpus):
     rep = ws.serve(corpus.queries[:40], on_wave=lambda w: time.sleep(0.002))
     assert rep.hook_ms >= 2.0 * rep.waves
     assert _live_serve(index, corpus).hook_ms > 0.0
+
+
+@pytest.mark.gpu
+def test_gpu_fused_serve_blocks_once_a_harvest(corpus, monkeypatch):
+    """On the card the fused serve answers as the per-probe path, and a
+    report outlives the next serve() on its scheduler, whose reads reuse
+    pinned host memory.  Without a deadline the host waits once a
+    harvest, for ``active``, and once for each harvest's exits, each
+    time on the event behind a copy to pinned memory: CUDA's sync debug
+    mode finds no synchronising call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the card)")
+    index = build_index(corpus.docs, 32, list_pad=128, n_iters=3,
+                        device="cuda")
+    q = torch.as_tensor(corpus.queries, device="cuda")
+    cfg = dict(_CFG, wave_size=8)
+    staged = []
+    stage = serving._Call.stage_exits
+
+    def counted(call, *args):
+        staged.append(1)
+        return stage(call, *args)
+
+    monkeypatch.setattr(serving._Call, "stage_exits", counted)
+    ws = WaveScheduler(index, **cfg)
+    ws.serve(q[:8])                                     # warm up
+    staged.clear()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            first = ws.serve(q[:32])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncing = [w for w in caught
+               if "called a synchronizing" in str(w.message)]
+    assert first.waves >= 8 and len(staged) >= first.waves // 2
+    assert syncing == []
+    assert first.host_syncs == first.waves + 1 + len(staged)
+    ws.serve(q[32:])
+    want = WaveScheduler(index, use_fused=False, **cfg).serve(q[:32])
+    assert first.waves == want.waves
+    assert first.probes == want.probes
+    for qid in range(32):
+        np.testing.assert_array_equal(first.results[qid], want.results[qid],
+                                      err_msg=f"query {qid}")
