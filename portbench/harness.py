@@ -9,12 +9,19 @@ handles on the documents, so that the program holds the only copy of
 the corpus on the card, and the check makes the corpus again from the
 seed once the program's objects are gone.
 
+A configuration with a ``policy`` block serves the paper's cascade: set-up
+trains its exit trees from the seed (``policy.py``), hands them to the
+program as a ``cascade_patience`` policy and builds
+``WaveScheduler(index, policy=...)``; a program whose ``WaveScheduler``
+takes no ``policy`` stops set-up before the corpus is made.
+
 ``run.py`` calls :func:`run` after it has seen the cards the cell
 needs; the tests call it on the CPU at a tiny configuration.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import sys
 import time
 from pathlib import Path
@@ -24,8 +31,8 @@ import numpy as np
 import torch
 
 from . import corpus as corpus_mod
-from . import drive, judge, mutations, spec, trace
-from .reference import counts
+from . import drive, judge, mutations, policy, spec, trace
+from .reference import counts, ivf_cascade
 
 # the traced window: at most this long, and no longer than the window
 TRACE_SECONDS = 2.0
@@ -99,7 +106,7 @@ class Bench:
     """A cell set up: its corpus on the device, the program's scheduler
     over it, and the generator of its traffic; in a live cell, the
     mutation stream (and a corpus without its documents, which the
-    program holds)."""
+    program holds); with a ``policy`` block, the exit trees."""
     cell: spec.Cell
     corpus: corpus_mod.Corpus
     sched: object
@@ -107,6 +114,7 @@ class Bench:
     sums: tuple
     sync: object
     stream: Optional[mutations.Stream] = None
+    forest: Optional[ivf_cascade.Forest] = None
 
     @property
     def cfg(self) -> dict:
@@ -122,15 +130,40 @@ class Bench:
                 torch.cuda.empty_cache()
 
 
+def program_policy(forest: ivf_cascade.Forest, cfg: dict,
+                   dev: torch.device):
+    """The program's ``cascade_patience`` policy over the trees
+    ``forest``, put on ``dev`` by the program's ``ensemble_from_arrays``."""
+    from repro_torch.core.policies import cascade_patience
+    from repro_torch.trees.torch_infer import ensemble_from_arrays
+
+    pol = cfg["policy"]
+    clf = ensemble_from_arrays(forest.feat, forest.thresh, forest.left,
+                               forest.right, forest.value, forest.base,
+                               forest.max_depth, device=dev)
+    return cascade_patience(cfg["n_probe"], clf, cfg["patience_delta"],
+                            cfg["patience_phi"],
+                            threshold=pol["clf_threshold"], k=cfg["k"],
+                            tau=pol["tau"])
+
+
 def setup(root: Path, workload: str, seed: int, dev: torch.device
           ) -> Bench:
     """Make the corpus, lay out the index, build the program's scheduler
-    over it and warm it up at the cell's shapes."""
+    over it and warm it up at the cell's shapes; with a ``policy``
+    block, train the exit trees first and hand the scheduler the
+    cascade."""
     from repro_torch.core.ivf import IVFIndex
     from repro_torch.core.serving import WaveScheduler
 
     cell = spec.cell(root, workload)
     cfg, mix = cell.config, cell.traffic
+    if "policy" in cfg and \
+            "policy" not in inspect.signature(WaveScheduler).parameters:
+        raise RuntimeError(
+            f"{cfg['name']}: the program's WaveScheduler takes no keyword "
+            f"'policy'; a configuration with a policy block needs "
+            f"WaveScheduler(index, policy=...)")
     sync = _sync_of(dev)
     t = time.perf_counter()
     c = corpus_mod.make(cfg, mix["pool"], seed, dev)
@@ -154,6 +187,13 @@ def setup(root: Path, workload: str, seed: int, dev: torch.device
                  phi=cfg["patience_phi"], use_fused=True)
     if "mutations" in mix:
         return _setup_live(cell, c, index, knobs, sums, seed, dev, sync)
+    forest = None
+    if "policy" in cfg:
+        forest, took = policy.train(c, cfg, seed)
+        log("exit trees: " + ", ".join(
+            f"{key} {v:.3f}" if isinstance(v, float) else f"{key} {v}"
+            for key, v in took.items()))
+        knobs["policy"] = program_policy(forest, cfg, dev)
     sched = WaveScheduler(index, **knobs)
 
     def serve(idx: np.ndarray):
@@ -163,7 +203,7 @@ def setup(root: Path, workload: str, seed: int, dev: torch.device
     t = time.perf_counter()
     load.warmup()
     log(f"warm-up {mix['warmup']}: {time.perf_counter() - t:.3f} s")
-    return Bench(cell, c, sched, load, sums, sync)
+    return Bench(cell, c, sched, load, sums, sync, forest=forest)
 
 
 # warm-up rounds of a live cell at most, while none has merged yet
@@ -222,11 +262,12 @@ def check(bench: Bench, calls, seed: int, control: bool = False,
     numbers = {"missing": judge.missing(calls),
                "inputs_changed": int(corpus_mod.checksum(c) != bench.sums)}
     ans = judge.sample(calls, *_sample_size(chk, calls, every_query), seed)
-    ref, inv = judge.reference_of(c, cfg, ans.pool_idx)
+    ref, inv = judge.reference_of(c, cfg, ans.pool_idx, forest=bench.forest)
     numbers.update(judge.compare(c, cfg, ans, ref, inv))
     out = {"program": numbers}
     if control:
-        ctl = judge.control_answers(c, cfg, ans.pool_idx)
+        ctl = judge.control_answers(c, cfg, ans.pool_idx,
+                                    forest=bench.forest)
         out["control"] = judge.compare(c, cfg, ctl, ref, inv)
     if explain:
         out["mismatches"] = judge.explain(c, cfg, ans, ref, inv)

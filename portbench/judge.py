@@ -42,17 +42,29 @@ answer and not only the sample:
   counts by the scheduler's admission rule (:func:`replay`), are not
   ``report.waves``; the replay also gives each answer its admission
   wave.
+
+A configuration with a ``policy`` block is judged against
+``reference/ivf_cascade.py`` with the trees the harness trained
+(``policy.py``).  Where the lesser of the two probe counts is ``tau``,
+the classifier's reading can set it: the tie rule then looks at the
+margins of every probe through ``tau`` (the features read them all), and
+also counts as tied a split on the reference's path within ``tree_tol``
+of its feature, or a margin within ``tree_tol`` of the threshold's
+logit, both on the reference's float64 features.  ``clf_exit_pct``, the
+share of sampled queries the reference's classifier exits at ``tau``,
+is printed beside the numbers.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .reference import ivf_live, ivf_patience
+from .reference import ivf_cascade, ivf_live, ivf_patience
 
 INF = float("inf")
 
@@ -111,11 +123,13 @@ def missing(calls) -> int:
 
 def reference_of(corpus, cfg: dict, pool_idx: np.ndarray, *,
                  tf32: bool = False, admit: Optional[np.ndarray] = None,
-                 overlay: Optional[ivf_live.Overlay] = None):
+                 overlay: Optional[ivf_live.Overlay] = None,
+                 forest: Optional[ivf_cascade.Forest] = None):
     """The reference over the distinct queries of ``pool_idx``; returns
     it and the row of each of ``pool_idx`` in it.  With an ``overlay``
     (a live cell), the live reference of each query admitted at its
-    wave of ``admit``, a row each."""
+    wave of ``admit``, a row each.  A configuration with a ``policy``
+    block takes the cascade reference with the trees ``forest``."""
     if overlay is not None:
         dev = corpus.pool.device
         ref = ivf_live.search(
@@ -128,6 +142,15 @@ def reference_of(corpus, cfg: dict, pool_idx: np.ndarray, *,
         return ref, np.arange(pool_idx.shape[0])
     uniq, inv = np.unique(pool_idx, return_inverse=True)
     q = corpus.pool[torch.as_tensor(uniq, device=corpus.pool.device)]
+    if "policy" in cfg:
+        pol = cfg["policy"]
+        ref = ivf_cascade.search(
+            q, corpus.docs, corpus.doc_ids, corpus.offsets, corpus.sizes,
+            corpus.centroids, forest, k=cfg["k"], n_probe=cfg["n_probe"],
+            delta=cfg["patience_delta"], phi=cfg["patience_phi"],
+            tau=pol["tau"], threshold=pol["clf_threshold"],
+            list_pad=cfg["list_pad"], tf32=tf32)
+        return ref, inv
     ref = ivf_patience.search(
         q, corpus.docs, corpus.doc_ids, corpus.offsets, corpus.sizes,
         corpus.centroids, k=cfg["k"], n_probe=cfg["n_probe"],
@@ -138,11 +161,13 @@ def reference_of(corpus, cfg: dict, pool_idx: np.ndarray, *,
 
 def control_answers(corpus, cfg: dict, pool_idx: np.ndarray, *,
                     admit: Optional[np.ndarray] = None,
-                    overlay: Optional[ivf_live.Overlay] = None) -> Answers:
+                    overlay: Optional[ivf_live.Overlay] = None,
+                    forest: Optional[ivf_cascade.Forest] = None
+                    ) -> Answers:
     """The control: the reference in TF32 put in the program's place,
-    its answers at its own patience exit."""
+    its answers at its own exit."""
     ref, inv = reference_of(corpus, cfg, pool_idx, tf32=True, admit=admit,
-                            overlay=overlay)
+                            overlay=overlay, forest=forest)
     rows = torch.arange(ref.probes.shape[0], device=ref.probes.device)
     ids = ref.ids[rows, ref.probes - 1].cpu().numpy()
     return Answers(pool_idx, ids[inv], ref.probes.cpu().numpy()[inv],
@@ -182,8 +207,22 @@ def _judged(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
     return invalid, probes_ok, gaps
 
 
+def stage_gaps(cfg: dict, ref, inv: np.ndarray) -> Optional[np.ndarray]:
+    """For a configuration with a ``policy`` block, per answer: how near
+    the reference's classifier stage is a tie, the lesser of its nearest
+    split (``split_gap``) and its margin's distance from the threshold's
+    logit; None for any other configuration."""
+    if "policy" not in cfg:
+        return None
+    thr = cfg["policy"]["clf_threshold"]
+    cut = math.log(thr / (1.0 - thr))
+    gap = torch.minimum(ref.split_gap, (ref.margin.double() - cut).abs())
+    return gap.cpu().numpy()[inv]
+
+
 def partings(corpus, cfg: dict, ans: Answers, ref_probes: np.ndarray,
-             sel: np.ndarray, overlay: Optional[ivf_live.Overlay] = None
+             sel: np.ndarray, overlay: Optional[ivf_live.Overlay] = None,
+             stage_gap: Optional[np.ndarray] = None
              ) -> Dict[str, np.ndarray]:
     """Where the answers ``sel`` can part from the reference, and how
     near a tie the reference is there (``ivf_patience.margins``).
@@ -201,7 +240,11 @@ def partings(corpus, cfg: dict, ans: Answers, ref_probes: np.ndarray,
     ``assign_tie``: an add of the overlay whose two nearest centroids
     lie within ``tie_tol``, on a list among the answer's first
     max(C, reference's C) probes, published before its last probe's
-    wave; ``tied`` then counts it too."""
+    wave; ``tied`` then counts it too.  With a ``stage_gap`` (a policy
+    configuration, :func:`stage_gaps`) and ``m`` equal to ``tau``:
+    ``lo`` is 0, since the classifier read the top-k after every probe
+    through ``tau``, ``stage`` is the answer's stage gap, and ``tied``
+    also counts it under ``tree_tol``."""
     dev = corpus.docs.device
     q = corpus.pool[torch.as_tensor(ans.pool_idx[sel], device=dev)]
     if overlay is None:
@@ -218,6 +261,10 @@ def partings(corpus, cfg: dict, ans: Answers, ref_probes: np.ndarray,
     bnd, cen = mg.boundary.cpu().numpy(), mg.centroid.cpu().numpy()
     m = np.minimum(ans.probes[sel], ref_probes[sel])
     lo = np.maximum(0, m - cfg["patience_delta"] - 1)
+    at_stage = np.zeros(sel.shape[0], bool)
+    if stage_gap is not None:
+        at_stage = m == cfg["policy"]["tau"]
+        lo = np.where(at_stage, 0, lo)
     out = {key: np.zeros(sel.shape[0], dtype) for key, dtype in (
         ("lo", np.int64), ("boundary", float), ("boundary_at", np.int64),
         ("centroid", float), ("centroid_at", np.int64))}
@@ -228,6 +275,9 @@ def partings(corpus, cfg: dict, ans: Answers, ref_probes: np.ndarray,
         out["centroid"][r], out["centroid_at"][r] = c.min(), c.argmin()
     tol = cfg["check"]["tie_tol"]
     out["tied"] = (out["boundary"] < tol) | (out["centroid"] < tol)
+    if stage_gap is not None:
+        out["stage"] = np.where(at_stage, stage_gap[sel], INF)
+        out["tied"] |= out["stage"] < cfg["check"]["tree_tol"]
     if overlay is not None:
         most = np.maximum(ans.probes[sel], ref_probes[sel])
         out["assign_tie"] = assignment_ties(
@@ -263,7 +313,8 @@ def compare(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
             overlay: Optional[ivf_live.Overlay] = None) -> Dict[str, float]:
     """The answer-by-answer numbers (see the module's docstring); with
     an ``overlay``, also ``assign_tied``, the mismatches only an
-    assignment tie excuses (printed only)."""
+    assignment tie excuses, and with a ``policy`` block
+    ``clf_exit_pct`` (both printed only)."""
     invalid, probes_ok, gaps = _judged(corpus, cfg, ans, ref, inv,
                                        overlay=overlay)
     ref_probes = ref.probes.cpu().numpy()[inv]
@@ -271,8 +322,9 @@ def compare(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
     untied = mismatch & ~probes_ok
     sel = np.nonzero(mismatch & probes_ok)[0]
     part = None
+    stage = stage_gaps(cfg, ref, inv)
     if sel.size:
-        part = partings(corpus, cfg, ans, ref_probes, sel, overlay)
+        part = partings(corpus, cfg, ans, ref_probes, sel, overlay, stage)
         untied[sel] = ~part["tied"]
     out = {
         "invalid": int(invalid.sum() + (~probes_ok).sum()),
@@ -282,6 +334,9 @@ def compare(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
         "probe_mismatch_pct": 100.0 * float(mismatch.mean()),
         "score_gap_max": float(gaps.max()) if gaps.size else 0.0,
     }
+    if stage is not None:
+        out["clf_exit_pct"] = 100.0 * float(
+            ref.clf_exit.cpu().numpy()[inv].mean())
     if overlay is not None:
         out["assign_tied"] = 0 if part is None else int(
             (part["assign_tie"] & (part["boundary"] >= cfg["check"]["tie_tol"])
@@ -294,15 +349,16 @@ def explain(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
     """Each sampled answer whose C is not the reference's, or whose ids
     fall short of the reference's top-k by more than ``gap_tol``, with
     the reference's ``kept`` after each probe from ``lo`` to the greater
-    C, the margins of :func:`partings` and the answer's score
-    shortfall."""
+    C, the margins of :func:`partings` (with a ``policy`` block, its
+    stage gap too) and the answer's score shortfall."""
     _, _, gaps = _judged(corpus, cfg, ans, ref, inv, overlay=overlay)
     ref_probes = ref.probes.cpu().numpy()[inv]
     bad = np.nonzero(np.isfinite(gaps) & (
         (ref_probes != ans.probes) | (gaps > cfg["check"]["gap_tol"])))[0]
     if not bad.size:
         return []
-    part = partings(corpus, cfg, ans, ref_probes, bad, overlay)
+    part = partings(corpus, cfg, ans, ref_probes, bad, overlay,
+                    stage_gaps(cfg, ref, inv))
     out = []
     for r, i in enumerate(bad):
         cp, cr = int(ans.probes[i]), int(ref_probes[i])
@@ -320,6 +376,8 @@ def explain(corpus, cfg: dict, ans: Answers, ref, inv: np.ndarray,
             "centroid_gap_at": int(part["centroid_at"][r]),
             "tied": bool(part["tied"][r]),
             "score_gap": float(gaps[i])})
+        if "stage" in part:
+            out[-1]["stage_gap"] = float(part["stage"][r])
     return out
 
 

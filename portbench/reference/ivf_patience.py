@@ -94,6 +94,18 @@ def _merge(run_s, run_i, new_s, new_i, k):
     return s.gather(1, by_s), i.gather(1, by_s), old.gather(1, by_s)
 
 
+def list_scores(q, lists, docs, doc_ids, offsets, sizes, lane, tf32: bool):
+    """Each query of ``q`` (already cast) against the live rows of its
+    list of ``lists``: (b, list_pad) scores, -inf past the list and on
+    ids -1, and the ids there, -1 likewise."""
+    rows = offsets[lists].long()[:, None] + lane
+    ids = doc_ids[rows].long()
+    live = (lane < sizes[lists].long()[:, None]) & (ids >= 0)
+    tile = _cast(docs[rows], tf32)                     # (b, pad, d)
+    sc = torch.bmm(tile, q[:, :, None])[:, :, 0]
+    return torch.where(live, sc, NEG), torch.where(live, ids, -1)
+
+
 def patience(ctr, old, run_i, h: int, k: int, phi: float):
     """The patience counter after probe ``h``: one more where ``h >= 1``
     and phi = 100 kept / k >= Phi, else 0; ``kept`` counts the entries of
@@ -126,14 +138,8 @@ def search(queries, docs, doc_ids, offsets, sizes, centroids, *, k: int,
             done = torch.zeros(b, dtype=torch.bool, device=dev)
             snap_i, snap_s = [], []
             for h in range(n_probe):
-                lists = order[s0:s0 + b, h]
-                rows = offsets[lists].long()[:, None] + lane
-                ids = doc_ids[rows].long()
-                live = (lane < sizes[lists].long()[:, None]) & (ids >= 0)
-                tile = _cast(docs[rows], tf32)             # (b, pad, d)
-                sc = torch.bmm(tile, q[:, :, None])[:, :, 0]
-                sc = torch.where(live, sc, NEG)
-                ids = torch.where(live, ids, -1)
+                sc, ids = list_scores(q, order[s0:s0 + b, h], docs, doc_ids,
+                                      offsets, sizes, lane, tf32)
                 run_s, run_i, old = _merge(run_s, run_i, sc, ids, k)
                 ctr = patience(ctr, old, run_i, h, k, phi)
                 exit_now = ~done & ((ctr >= delta) | (h + 1 >= n_probe))

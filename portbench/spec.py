@@ -17,6 +17,13 @@ A configuration may carry a ``live`` block (``delta_cap``, and
 ``mutations`` block (``adds_per_wave``, ``deletes_per_wave``,
 ``plants_per_wave`` and a ``source``): a cell of such a mix on such a
 configuration is live (``mutations.py``).
+
+A configuration may instead carry a ``policy`` block: its exit is the
+paper's cascade, a classifier at ``tau`` probes before the patience
+exit, whose trees the benchmark trains at set-up (``policy.py``) and
+``reference/ivf_cascade.py`` judges.  A configuration names the
+reference that judges it under ``"reference"``: the cascade one with a
+policy, the live one with a live block, else the patience one.
 """
 from __future__ import annotations
 
@@ -36,6 +43,11 @@ TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
 MUTATION_COUNTS = ("adds_per_wave", "deletes_per_wave", "plants_per_wave")
 # the numbers a live configuration's check holds at limit 0
 LIVE_LIMITS = ("deleted_returned", "acked_add_missed", "schedule_mismatch")
+POLICY_KINDS = ("cascade_patience",)
+TRAIN_COUNTS = ("queries", "valid", "n_trees", "max_depth", "n_bins")
+REFERENCES = {"policy": "portbench/reference/ivf_cascade.py",
+              "live": "portbench/reference/ivf_live.py",
+              None: "portbench/reference/ivf_patience.py"}
 
 
 @dataclasses.dataclass
@@ -126,12 +138,63 @@ def live_problems(name: str, cfg: dict, mix: dict) -> List[str]:
     return out
 
 
+def _share(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool) \
+        and 0 < x < 1
+
+
+def _positive(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool) and x > 0
+
+
+def config_problems(cfg: dict) -> List[str]:
+    """What breaks the rules of one configuration's ``policy`` block and
+    its ``reference``: a kind other than ``cascade_patience``, ``tau``
+    outside ``[2, n_probe]``, a threshold outside (0, 1), an Exit
+    weight or a ``check.tree_tol`` that is no positive number, train
+    counts that are no positive whole numbers, a policy beside a
+    ``live`` block, and a ``reference`` that is not the one the blocks
+    call for."""
+    name = cfg.get("name")
+    pol = cfg.get("policy")
+    out = []
+    if pol is not None:
+        if pol.get("kind") not in POLICY_KINDS:
+            out.append(f"{name}: policy kind {pol.get('kind')!r}")
+        tau = pol.get("tau")
+        if not (_count(tau, 2) and isinstance(cfg.get("n_probe"), int)
+                and tau <= cfg["n_probe"]):
+            out.append(f"{name}: policy tau {tau!r} outside [2, n_probe]")
+        if not _share(pol.get("clf_threshold")):
+            out.append(f"{name}: policy clf_threshold "
+                       f"{pol.get('clf_threshold')!r} outside (0, 1)")
+        if not _positive(pol.get("exit_weight")):
+            out.append(f"{name}: policy exit_weight "
+                       f"{pol.get('exit_weight')!r}")
+        train = pol.get("train")
+        for key in TRAIN_COUNTS:
+            v = train.get(key) if isinstance(train, dict) else None
+            if not _count(v, 1):
+                out.append(f"{name}: policy train {key} {v!r}")
+        if "live" in cfg:
+            out.append(f"{name}: a policy block beside a live block")
+        if not _positive(cfg.get("check", {}).get("tree_tol")):
+            out.append(f"{name}: policy without a check.tree_tol")
+    kind = "policy" if pol is not None else \
+        "live" if "live" in cfg else None
+    if cfg.get("reference") != REFERENCES[kind]:
+        out.append(f"{name}: reference {cfg.get('reference')!r}, not "
+                   f"{REFERENCES[kind]}")
+    return out
+
+
 def problems(root: Path) -> List[str]:
     """What in ``root/BENCHMARK.json`` breaks the harness's rules: names
     and units of the allowed characters, unique names, every file named
     present, every cell that reports a per-layer metric reporting
-    the end-to-end metric it ``moves``, and live cells as
-    :func:`live_problems` says."""
+    the end-to-end metric it ``moves``, live cells as
+    :func:`live_problems` says and configurations as
+    :func:`config_problems` says."""
     bench = load_json(root / "BENCHMARK.json")
     out = []
     if set(bench) != TOP_KEYS:
@@ -151,6 +214,8 @@ def problems(root: Path) -> List[str]:
     for c in configs.values():
         if not (root / c["file"]).is_file():
             out.append(f"config file {c['file']} missing")
+        else:
+            out += config_problems(load_json(root / c["file"]))
         for key in c["reduced"]:
             if not NAME.match(key):
                 out.append(f"bad reduced key {key!r}")

@@ -21,6 +21,7 @@ TINY = {
     "corpus": {"spread_at_64": 0.08, "scale_range": [0.5, 1.5],
                "list_size_sigma": 0.35, "list_size_min": 1},
     "queries": {"hard_frac": 0.35, "easy_noise": 0.15},
+    "reference": "portbench/reference/ivf_patience.py",
     "check": {"sample": 4096, "longest": 32, "gap_tol": 1e-5,
               "tie_tol": 1e-6,
               "limits": {"missing": 0, "inputs_changed": 0, "invalid": 0,
@@ -29,6 +30,7 @@ TINY = {
 TINY_LIVE = dict(
     TINY, name="tiny-live", chunk=1,
     live={"delta_cap": 256, "merge_every": 8},
+    reference="portbench/reference/ivf_live.py",
     check=dict(TINY["check"], limits=dict(
         TINY["check"]["limits"], deleted_returned=0, acked_add_missed=0,
         schedule_mismatch=0)))

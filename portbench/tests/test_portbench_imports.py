@@ -1,6 +1,7 @@
 """Nothing under portbench/ imports JAX or the JAX package, compared by
 whole top-level names (``repro_torch`` begins with ``repro``), and the
-reference imports nothing of the program."""
+reference, the frozen trainer under it and the exit trees' recipe
+(``policy.py``) import nothing of the program."""
 import ast
 
 import pytest
@@ -34,7 +35,16 @@ def test_no_jax_side_import(path):
     ids=lambda p: str(p.relative_to(BENCH)))
 def test_reference_imports_nothing_of_the_program(path):
     assert set(top_level_imports(path)) <= {"__future__", "dataclasses",
-                                            "contextlib", "torch"}
+                                            "contextlib", "typing",
+                                            "numpy", "torch"}
+
+
+@pytest.mark.parametrize("name", ["policy.py", "reference/ivf_cascade.py",
+                                  "reference/gbdt.py", "reference/smote.py"])
+def test_trees_and_cascade_reference_import_no_program(name):
+    path = BENCH / name
+    assert path in FILES
+    assert not set(top_level_imports(path)) & {"repro_torch", "repro"}
 
 
 def test_whole_names_are_compared():
