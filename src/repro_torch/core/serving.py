@@ -22,6 +22,14 @@ rebuild stage between waves.  With a ``deadline_ms`` it budgets every
 query from its admission and walks the degradation ladder
 (``core.policies.DegradationLadder``) instead of blowing the budget,
 and pauses those rebuild ticks while a lane is close to its deadline.
+
+With a learned ``policy`` (``core.policies.classifier`` or
+``cascade_patience``) the scheduler serves the paper's cascade: each
+lane records what the Table-1 features read as its waves go, and the
+wave in which a lane reaches probe ``tau`` walks the Exit/Continue
+trees on that slot's snapshot (the stage ``core.ivf.search`` runs, on
+the same bits), capping the lanes they exit at ``tau``; patience stops
+the rest, never before ``tau``.
 """
 from __future__ import annotations
 
@@ -33,16 +41,32 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike
+from repro_torch.core.features import FeatureExtras, feature_matrix
 from repro_torch.core.ivf import (DeltaView, IVFIndex, as_queries,
-                                  check_same_device, index_device,
-                                  intersection_pct, merge_topk,
-                                  probe_candidates, scan_merge_chunk,
-                                  scrub_dead, top_k, validate_alignment)
+                                  centroid_rank, check_same_device,
+                                  index_device, intersection_pct,
+                                  merge_topk, probe_candidates,
+                                  scan_merge_chunk, scrub_dead,
+                                  validate_alignment)
 from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
-                                       RUNG_TIGHTEN, DegradationLadder)
+                                       RUNG_TIGHTEN, DegradationLadder,
+                                       Policy)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.slot_roll import Lanes, slot_step
 from repro_torch.trace import span
+from repro_torch.trees.torch_infer import predict_margin
+
+
+class TauLanes(NamedTuple):
+    """What a learned policy's stage at probe ``tau`` reads of a lane
+    besides its query and top-k (``core.features.FeatureExtras``),
+    recorded as its waves go, and the call's counts of the stage."""
+    centroid_sims: torch.Tensor  # (W, tau) f32 sims in probe order
+    rs1_ids: torch.Tensor        # (W, k) int32 top-k after probe 1
+    phi_hist: torch.Tensor       # (W, tau-1) f32 phi at probes 2..tau
+    phi1_hist: torch.Tensor      # (W, tau-1) f32 % of RS_1 kept, same
+    clf_exits: torch.Tensor      # () int64 exits at tau, on the device
+    ms: float                    # host ms in the serve.tau spans
 
 
 class LaneState(NamedTuple):
@@ -51,12 +75,16 @@ class LaneState(NamedTuple):
     lanes: Lanes                # what a slot moves: h, patience, active,
                                 # the running top-k
     qid: torch.Tensor           # (W,) int32 external id, -1 empty
+    tau: Optional[TauLanes] = None   # with a learned policy only
 
 
-def _empty_state(w: int, d: int, n: int, k: int,
-                 device: torch.device) -> LaneState:
+def _empty_state(w: int, d: int, n: int, k: int, device: torch.device,
+                 tau: int = 0) -> LaneState:
+    """Empty lanes; with ``tau`` > 0 they record a learned stage's
+    inputs (:class:`TauLanes`)."""
     def full(shape, v, dtype):
         return torch.full(shape, v, dtype=dtype, device=device)
+    hist = (w, max(tau - 1, 1))
     return LaneState(
         qvec=full((w, d), 0.0, torch.float32),
         cluster_rank=full((w, n), 0, torch.int64),
@@ -65,24 +93,41 @@ def _empty_state(w: int, d: int, n: int, k: int,
                     active=full((w,), False, torch.bool),
                     topk_scores=full((w, k), float("-inf"), torch.float32),
                     topk_ids=full((w, k), -1, torch.int32)),
-        qid=full((w,), -1, torch.int32))
+        qid=full((w,), -1, torch.int32),
+        tau=None if not tau else TauLanes(
+            centroid_sims=full((w, tau), 0.0, torch.float32),
+            rs1_ids=full((w, k), -1, torch.int32),
+            phi_hist=full(hist, 0.0, torch.float32),
+            phi1_hist=full(hist, 0.0, torch.float32),
+            clf_exits=torch.zeros((), dtype=torch.int64, device=device),
+            ms=0.0))
 
 
-def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
+def _admit(state: LaneState, index: IVFIndex, new_q: torch.Tensor,
            new_qid: torch.Tensor, n_probe: int) -> LaneState:
-    """Fill empty lanes with up to len(new_q) queries (vectorised)."""
+    """Fill empty lanes with up to len(new_q) queries (vectorised).
+    Lanes that record a learned stage's inputs rank the centroids per
+    row, as ``core.ivf.search`` does for a learned policy, and keep the
+    first ``tau`` sims."""
     ln = state.lanes
     free = ~ln.active                                     # (W,)
     # slot j of new_q goes to the j-th free lane
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1
     take = free & (free_rank < new_q.shape[0])
     src = free_rank.clamp(0, new_q.shape[0] - 1).long()
-    _, rank = top_k(new_q @ centroids.T, n_probe)
+    sims, rank = centroid_rank(index, new_q, n_probe,
+                               per_row=state.tau is not None)
 
     def fill(old, new_full):
         m = take.reshape((-1,) + (1,) * (old.dim() - 1))
         return torch.where(m, new_full[src], old)
 
+    tau = state.tau
+    if tau is not None:
+        # RS_1 and every history column are written before the stage
+        # reads them (``_tau_stage``): only the sims are the admission's
+        tau = tau._replace(centroid_sims=fill(
+            tau.centroid_sims, sims[:, :tau.centroid_sims.shape[1]]))
     return LaneState(
         qvec=fill(state.qvec, new_q),
         cluster_rank=fill(state.cluster_rank, rank.long()),
@@ -92,15 +137,64 @@ def _admit(state: LaneState, centroids: torch.Tensor, new_q: torch.Tensor,
                     topk_scores=torch.where(take[:, None], float("-inf"),
                                             ln.topk_scores),
                     topk_ids=torch.where(take[:, None], -1, ln.topk_ids)),
-        qid=torch.where(take, new_qid[src], state.qid))
+        qid=torch.where(take, new_qid[src], state.qid), tau=tau)
+
+
+def _tau_stage(policy: Policy, state: LaneState, snap_s: torch.Tensor,
+               snap_i: torch.Tensor, cnts: torch.Tensor,
+               lane_cap: torch.Tensor, *, k: int, chunk: int, n_probe: int
+               ) -> Tuple[LaneState, torch.Tensor]:
+    """A learned policy's work in one fused wave, between the chunk's
+    scan (its (W, chunk, k) snapshots and (W, chunk) new-entry counts)
+    and the slot roll; every lane mask comes from ``h`` on the device.
+
+    Each lane records the slots of the chunk whose probe lies in
+    ``search``'s windows: RS_1 after its first probe, phi (from the
+    count, as the roll computes it) and the share of RS_1 kept after
+    probes 2..tau.  Lanes whose probe ``tau`` falls in this wave build
+    the Table-1 matrix from that slot's snapshot, walk the trees, and
+    take ``lane_cap = tau`` where the classifier says Exit.  Returns the
+    lanes, their exits counted in ``state.tau``, and the caps."""
+    ln, rec = state.lanes, state.tau
+    tau, dev = policy.tau, ln.h.device
+    h0 = ln.h[:, None]
+    # the slots that merged: an active lane's, inside the probe budget
+    ok = (h0 + torch.arange(chunk, device=dev)[None, :] < n_probe) \
+        & ln.active[:, None]
+    rs1 = torch.where((ok[:, 0] & (ln.h == 0))[:, None], snap_i[:, 0],
+                      rec.rs1_ids)
+    phi_hist, phi1_hist = rec.phi_hist, rec.phi1_hist
+    if tau > 1:
+        # history column c holds probe c + 2 (0-based c + 1): slot c + 1 - h
+        slot = torch.arange(phi_hist.shape[1], device=dev)[None, :] + 1 - h0
+        at = slot.clamp(0, chunk - 1)
+        upd = (slot >= 0) & (slot < chunk) & torch.gather(ok, 1, at)
+        phi = 100.0 * (k - cnts).to(torch.float32) / k
+        phi1 = intersection_pct(rs1[:, None, :], snap_i)
+        phi_hist = torch.where(upd, torch.gather(phi, 1, at), phi_hist)
+        phi1_hist = torch.where(upd, torch.gather(phi1, 1, at), phi1_hist)
+    t_tau = tau - 1 - ln.h
+    stage = ln.active & (t_tau >= 0) & (t_tau < chunk)
+    rows = torch.arange(ln.h.shape[0], device=dev)
+    fm = feature_matrix(FeatureExtras(
+        queries=state.qvec, centroid_sims=rec.centroid_sims,
+        topk_scores=snap_s[rows, t_tau.clamp(0, chunk - 1).long()],
+        phi_hist=phi_hist, phi1_hist=phi1_hist), with_intersections=True)
+    says_exit = torch.sigmoid(predict_margin(policy.clf, fm)) \
+        >= policy.clf_threshold
+    exits = stage & says_exit
+    return (state._replace(tau=rec._replace(
+        rs1_ids=rs1, phi_hist=phi_hist, phi1_hist=phi1_hist,
+        clf_exits=rec.clf_exits + exits.sum())),
+        torch.where(exits, tau, lane_cap))
 
 
 def _advance(index: IVFIndex, state: LaneState,
              dview: Optional[DeltaView] = None,
              dead: Optional[torch.Tensor] = None, *,
              lane_delta: torch.Tensor, lane_cap: torch.Tensor, chunk: int,
-             k: int, n_probe: int, phi: float,
-             use_fused: bool = True) -> LaneState:
+             k: int, n_probe: int, phi: float, use_fused: bool = True,
+             policy: Optional[Policy] = None) -> LaneState:
     """Advance every active lane by up to ``chunk`` probes.
 
     ``lane_delta``/``lane_cap`` are per-lane (W,) int32 exit knobs on
@@ -113,7 +207,11 @@ def _advance(index: IVFIndex, state: LaneState,
     (``core.ivf.scan_merge_chunk``) and ONE ``slot_roll`` launch that
     rolls lane state forward slot by slot from that kernel's per-probe
     snapshots, so mid-chunk exits land on the exact probe they would on
-    the per-probe path.  Its slots are budgeted by ``n_probe``, not
+    the per-probe path.  No lane's patience exits before ``policy``'s
+    ``min_probes`` probes; lanes that record a learned policy's inputs
+    (``state.tau``) run its stage (:func:`_tau_stage`) between the scan
+    and the roll, on the fused path only.  Its slots are budgeted by
+    ``n_probe``, not
     ``lane_cap``: a capped lane's later slots are scanned and then
     discarded by the slot roll, so fused stays equal to per-probe.  The
     per-probe path runs the kernel pair (``core.ivf.probe_candidates``
@@ -130,6 +228,7 @@ def _advance(index: IVFIndex, state: LaneState,
     which lanes that span a version swap need.
     """
     ln = state.lanes
+    min_probes = 1 if policy is None else policy.min_probes
     if dead is not None:
         # scrub once per wave: a lane's carry may predate a deletion
         ts0, ti0 = scrub_dead(ln.topk_scores, ln.topk_ids, dead)
@@ -149,10 +248,20 @@ def _advance(index: IVFIndex, state: LaneState,
         snap_s, snap_i, cnts = scan_merge_chunk(
             index, state.qvec, cids, slot_ok, ln.topk_scores, ln.topk_ids,
             dview, k=k, chunk=chunk)
+        if state.tau is not None:
+            t0 = time.perf_counter()
+            with span("serve.tau"):
+                state, lane_cap = _tau_stage(
+                    policy, state, snap_s, snap_i, cnts, lane_cap, k=k,
+                    chunk=chunk, n_probe=n_probe)
+            state = state._replace(tau=state.tau._replace(
+                ms=state.tau.ms + 1e3 * (time.perf_counter() - t0)))
         return state._replace(lanes=kops.slot_roll(
             snap_s, snap_i, cnts, ln, lane_delta, lane_cap, k=k,
-            chunk=chunk, phi=phi))
+            chunk=chunk, phi=phi, min_probes=min_probes))
 
+    if state.tau is not None:
+        raise ValueError("a learned policy's stage runs on the fused path")
     d_sc = None if dview is None \
         else kops.delta_scan(state.qvec, dview.vecs)          # (W, cap)
     for _ in range(chunk):
@@ -164,9 +273,13 @@ def _advance(index: IVFIndex, state: LaneState,
                             use_kernel=True)
         ti = torch.where(ln.active[:, None], mi, ln.topk_ids)
         ln = slot_step(ln, ms, mi, intersection_pct(ln.topk_ids, ti),
-                       phi=phi, lane_delta=lane_delta, lane_cap=lane_cap)
+                       phi=phi, lane_delta=lane_delta, lane_cap=lane_cap,
+                       min_probes=min_probes)
     return state._replace(lanes=ln)
 
+
+#: the scheduler's exit knobs where neither a keyword nor a policy sets one
+_KNOBS = {"k": 100, "n_probe": 80, "delta": 7, "phi": 95.0}
 
 #: ordering of degradation reasons — a stronger rung overwrites a weaker
 _REASON_RANK = {"tightened_patience": 1, "capped_probes": 2,
@@ -199,6 +312,9 @@ class ServeReport:
     sync_wait_ms: float = 0.0   # host ms spent in them
     # -- the on_wave hook: host ms spent in it (0.0 without a hook) --
     hook_ms: float = 0.0
+    # -- a learned policy's stage at tau (zero without one) --
+    clf_exits: int = 0          # queries the classifier exited at tau
+    tau_ms: float = 0.0         # host ms in the serve.tau spans
 
     @property
     def degraded_fraction(self) -> float:
@@ -312,10 +428,15 @@ class _Call:
             out = self.read.wait(staged)
             self.answer(qids, out[:, :-1], out[:, -1], latency)
 
-    def report(self, wave_slots: int) -> ServeReport:
+    def report(self, wave_slots: int,
+               tau: Optional[TauLanes]) -> ServeReport:
         """The completed report; ``wave_slots`` lane-probe slots are
-        spent a wave."""
+        spent a wave.  A learned stage's exits (``tau``) are read here,
+        once."""
         rep = self.rep
+        if tau is not None:
+            rep.clf_exits = int(self.read(tau.clf_exits))
+            rep.tau_ms = tau.ms
         rep.occupancy = float(np.mean(self.occ)) if self.occ else 0.0
         rep.lane_steps = rep.waves * wave_slots
         rep.host_syncs = self.read.count
@@ -348,16 +469,31 @@ class WaveScheduler:
     is armed, the scheduler runs ONE rebuild pipeline stage after each
     wave — unless the degradation ladder's ``throttle_rebuild`` says a
     lane is too close to its deadline to absorb the stall.
+
+    ``policy`` (optional, ``core.policies``): ``patience(...)`` (served
+    as without one, its ``min_probes`` kept), ``classifier(...)`` or
+    ``cascade_patience(...)``; the scheduler takes its ``k`` and
+    ``n_probe``, and with patience its ``delta`` and ``phi``, and any of
+    them also given as a keyword must be the policy's.  A learned policy
+    serves on the fused path, without a registry or a deadline, and
+    answers as ``core.ivf.search`` under it with the same chunk, bit for
+    bit.  A REG stage is refused.
     """
 
     def __init__(self, index: IVFIndex, *, wave_size: int = 64,
-                 chunk: int = 8, k: int = 100, n_probe: int = 80,
-                 delta: int = 7, phi: float = 95.0, use_fused: bool = True,
+                 chunk: int = 8, k: Optional[int] = None,
+                 n_probe: Optional[int] = None, delta: Optional[int] = None,
+                 phi: Optional[float] = None, use_fused: bool = True,
                  registry=None, deadline_ms: Optional[float] = None,
                  ladder: Optional[DegradationLadder] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 rebuilder=None, device: DeviceLike = None):
-        """``deadline_ms``: per-query latency budget, counted from lane
+                 rebuilder=None, device: DeviceLike = None,
+                 policy: Optional[Policy] = None):
+        """``k``, ``n_probe``, ``delta``, ``phi``: the exit knobs, a
+        ``policy``'s where it holds them, else 100, 80, 7 and 95.0 unless
+        given.
+
+        ``deadline_ms``: per-query latency budget, counted from lane
         admission.  When set, the scheduler walks the
         :class:`repro_torch.core.policies.DegradationLadder` instead of
         blowing the budget: tighten patience -> cap remaining probes ->
@@ -376,10 +512,17 @@ class WaveScheduler:
         self.index = index if registry is None else None
         self.w = wave_size
         self.chunk = chunk
-        self.k = k
-        self.n = min(n_probe, index.n_clusters)
-        self.delta = delta
-        self.phi = phi
+        self.policy = policy
+        knobs = {key: v for key, v in (("k", k), ("n_probe", n_probe),
+                                       ("delta", delta), ("phi", phi))
+                 if v is not None}
+        if policy is not None:
+            knobs = self._policy_knobs(knobs)
+        knobs = dict(_KNOBS, **knobs)
+        self.k = knobs["k"]
+        self.n = min(knobs["n_probe"], index.n_clusters)
+        self.delta = knobs["delta"]
+        self.phi = knobs["phi"]
         self.use_fused = use_fused
         self.registry = registry
         self.deadline_ms = deadline_ms
@@ -387,6 +530,49 @@ class WaveScheduler:
         self._now = clock or (lambda: time.monotonic() * 1000.0)
         self.rebuilder = rebuilder
         self._pinned = None        # version lanes are probing against
+        if self._learned:
+            self._check_learned()
+
+    def _policy_knobs(self, given: dict) -> dict:
+        """The exit knobs ``self.policy`` holds (its ``k`` and
+        ``n_probe``, with patience its ``delta`` and ``phi``), after
+        checking that each knob ``given`` as a keyword equals it."""
+        pol = self.policy
+        if pol.use_reg:
+            raise ValueError(f"WaveScheduler serves no REG stage; policy "
+                             f"{pol.name!r} has one")
+        keys = ("k", "n_probe") + (("delta", "phi") if pol.use_patience
+                                   else ())
+        off = [f"{key} {getattr(pol, key)!r} (the scheduler's {v!r})"
+               for key, v in given.items()
+               if key in keys and getattr(pol, key) != v]
+        if off:
+            raise ValueError(f"policy {pol.name!r} disagrees with the "
+                             f"scheduler's knobs: {', '.join(off)}")
+        return dict(given, **{key: getattr(pol, key) for key in keys})
+
+    def _check_learned(self) -> None:
+        """Raise unless the learned ``self.policy`` is one the scheduler
+        serves (the class docstring)."""
+        pol = self.policy
+        for what, on in (("deadline_ms", self.deadline_ms is not None),
+                         ("registry", self.registry is not None),
+                         ("use_fused=False", not self.use_fused)):
+            if on:
+                raise ValueError(f"a learned policy ({pol.name!r}) is "
+                                 f"served without {what}")
+        if not 1 <= pol.tau <= self.n or pol.min_probes != pol.tau:
+            raise ValueError(
+                f"policy {pol.name!r}: tau {pol.tau} must lie in [1, "
+                f"{self.n}] and min_probes ({pol.min_probes}) equal it")
+        clf = pol.clf
+        check_same_device(self.device, "a tree of the policy", clf.feat,
+                          clf.thresh, clf.left, clf.right, clf.value,
+                          clf.base)
+
+    @property
+    def _learned(self) -> bool:
+        return self.policy is not None and self.policy.learned
 
     def _pin(self, call: _Call, active_any: bool) -> bool:
         """Adopt the registry's current version if lanes allow it.
@@ -429,7 +615,9 @@ class WaveScheduler:
         every device-to-host read or wait for a copy is a ``serve.sync``
         span (``repro_torch.trace``); each ``on_wave`` call is a
         ``serve.hook`` span, and ``ServeReport.hook_ms`` sums its host
-        ms."""
+        ms.  With a learned policy each ``serve.advance`` holds a
+        ``serve.tau`` span (``ServeReport.tau_ms``), and the call ends
+        with one read of ``ServeReport.clf_exits``."""
         with span("serve"):
             return self._serve(queries, compact, on_wave)
 
@@ -441,11 +629,15 @@ class WaveScheduler:
         call = _Call(self.w, self.deadline_ms)
         queries = as_queries(queries, self.device)
         nq, d = queries.shape
-        state = _empty_state(self.w, d, self.n, self.k, self.device)
-        # the exit knobs (lane_delta, lane_cap) of a lane under no pressure
+        state = _empty_state(self.w, d, self.n, self.k, self.device,
+                             self.policy.tau if self._learned else 0)
+        # the exit knobs (lane_delta, lane_cap) of a lane under no
+        # pressure; a policy without patience never reaches its delta
+        delta = self.delta if self.policy is None \
+            or self.policy.use_patience else self.n + 1
         full = tuple(torch.full((self.w,), v, dtype=torch.int32,
                                 device=self.device)
-                     for v in (self.delta, self.n))
+                     for v in (delta, self.n))
         self._pinned = None if self.registry is None \
             else self.registry.current()
         while True:
@@ -457,14 +649,14 @@ class WaveScheduler:
             if (compact or not active.any()) and not draining \
                     and call.next_q < nq and (~active).any():
                 state, active = self._admit_queued(
-                    call, state, active, queries, version[0].centroids, now)
+                    call, state, active, queries, version[0], now)
             if not active.any() and call.next_q >= nq:
                 break
             state = self._advance_wave(call, state, active, version, knobs,
                                        on_wave, now)
             self._rebuild_tick(call, state)
         call.record_exits()         # the last harvest's
-        return call.report(self.w * self.chunk)
+        return call.report(self.w * self.chunk, state.tau)
 
     def _harvest(self, call: _Call, state: LaneState
                  ) -> Tuple[np.ndarray, float]:
@@ -525,11 +717,12 @@ class WaveScheduler:
 
     def _admit_queued(self, call: _Call, state: LaneState,
                       active: np.ndarray, queries: torch.Tensor,
-                      centroids: torch.Tensor, now: float
+                      index: IVFIndex, now: float
                       ) -> Tuple[LaneState, np.ndarray]:
         """Fill the free lanes from the queue, ranking clusters against
-        the epoch they will probe; under a deadline no wave can meet,
-        shed them instead.  Returns the lanes and the active mask."""
+        the epoch (``index``) they will probe; under a deadline no wave
+        can meet, shed them instead.  Returns the lanes and the active
+        mask."""
         room = int((~active).sum())
         if self.deadline_ms is not None \
                 and call.rep.wave_cost_ms > self.deadline_ms:
@@ -546,7 +739,7 @@ class WaveScheduler:
             n = batch.shape[0]
             qids = torch.arange(call.next_q, call.next_q + n,
                                 dtype=torch.int32, device=self.device)
-            state = _admit(state, centroids, batch, qids, self.n)
+            state = _admit(state, index, batch, qids, self.n)
             # _admit's rule on the host: the j-th free lane takes query
             # next_q + j, so nothing need be read back
             take = np.nonzero(~active)[0][:n]
@@ -573,7 +766,8 @@ class WaveScheduler:
             state = _advance(index, state, dview, dead,
                              lane_delta=lane_delta, lane_cap=lane_cap,
                              chunk=self.chunk, k=self.k, n_probe=self.n,
-                             phi=self.phi, use_fused=self.use_fused)
+                             phi=self.phi, use_fused=self.use_fused,
+                             policy=self.policy)
         call.rep.waves += 1
         call.record_exits()
         if on_wave is not None:

@@ -10,7 +10,8 @@
 //   phi_v    = 100 * (k - cnt[t]) / k
 //   patience = (h >= 1 && phi_v >= phi) ? patience + 1 : 0
 //   h       += 1
-//   the lane exits when patience >= lane_delta or h >= lane_cap;
+//   the lane exits when patience >= lane_delta and h >= min_probes (a
+//   cascade's tau; 1 gates nothing), or when h >= lane_cap;
 // at a slot where the lane is inactive its patience reads 0 and h stays.
 // The top-k is the snapshot of the last slot at which the lane was
 // active, or the carried one if it was inactive at the wave's top.
@@ -47,7 +48,8 @@ __global__ void __launch_bounds__(kThreads) slot_roll_kernel(
     const int* __restrict__ lane_delta, const int* __restrict__ lane_cap,
     int* __restrict__ h_out, int* __restrict__ patience_out,
     bool* __restrict__ active_out, float* __restrict__ topk_s_out,
-    int* __restrict__ topk_i_out, int w, int chunk, int k, float phi) {
+    int* __restrict__ topk_i_out, int w, int chunk, int k, int min_probes,
+    float phi) {
   const int lane = blockIdx.x * kLanesPerBlock + threadIdx.x / 32;
   if (lane >= w) return;
   const int t_warp = threadIdx.x % 32;
@@ -66,7 +68,7 @@ __global__ void __launch_bounds__(kThreads) slot_roll_kernel(
       patience = (h >= 1 && phi_v >= phi) ? patience + 1 : 0;
       h += 1;
       last = t;
-      if (patience >= delta || h >= cap) active = false;
+      if ((patience >= delta && h >= min_probes) || h >= cap) active = false;
     } else {
       patience = 0;
     }
@@ -96,11 +98,12 @@ extern "C" int slot_roll(const float* snap_s, const int* snap_i,
                          const int* topk_i, const int* lane_delta,
                          const int* lane_cap, int* h_out, int* patience_out,
                          bool* active_out, float* topk_s_out, int* topk_i_out,
-                         int w, int chunk, int k, float phi, void* stream) {
+                         int w, int chunk, int k, int min_probes, float phi,
+                         void* stream) {
   const int blocks = (w + kLanesPerBlock - 1) / kLanesPerBlock;
   slot_roll_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       snap_s, snap_i, cnts, h, patience, active, topk_s, topk_i, lane_delta,
       lane_cap, h_out, patience_out, active_out, topk_s_out, topk_i_out, w,
-      chunk, k, phi);
+      chunk, k, min_probes, phi);
   return static_cast<int>(cudaGetLastError());
 }

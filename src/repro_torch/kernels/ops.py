@@ -108,16 +108,17 @@ def row_topk(x, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def slot_roll(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *, k: int,
-              chunk: int, phi: float) -> _sr.Lanes:
+              chunk: int, phi: float, min_probes: int = 1) -> _sr.Lanes:
     """Roll the lanes' fields (``slot_roll.Lanes``) through the fused
     kernel's (W, chunk, k) snapshots and (W, chunk) new-entry counts:
-    per slot, the patience exit rule with phi threshold ``phi`` and the
-    per-lane (W,) ``lane_delta``/``lane_cap``."""
+    per slot, the patience exit rule with phi threshold ``phi``, no
+    patience exit before ``min_probes`` probes, and the per-lane (W,)
+    ``lane_delta``/``lane_cap``."""
     return _sr.slot_roll(snap_s.contiguous(), snap_i.contiguous(),
                          cnts.contiguous(),
                          _sr.Lanes(*(t.contiguous() for t in lanes)),
                          lane_delta.contiguous(), lane_cap.contiguous(),
-                         k=k, chunk=chunk, phi=phi)
+                         k=k, chunk=chunk, phi=phi, min_probes=min_probes)
 
 
 def embedding_bag(table, ids) -> torch.Tensor:

@@ -1134,11 +1134,11 @@ def _seed_slot_chain(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *,
 
 
 def _slot_roll_model(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *,
-                     k, chunk, phi):
+                     k, chunk, phi, min_probes=1):
     """csrc/slot_roll.cu step for step in numpy, every lane at once: the
     loop over the slots in registers, phi_v as two float32 products by
-    the reciprocal of k, then one copy of the last active slot's top-k
-    (or the carried one)."""
+    the reciprocal of k, the patience exit held to ``min_probes``, then
+    one copy of the last active slot's top-k (or the carried one)."""
     n = {f: v.numpy().copy() for f, v in lanes._asdict().items()}
     h, pat, act = n["h"], n["patience"], n["active"]
     inv_k = np.float32(1.0) / np.float32(k)
@@ -1150,7 +1150,8 @@ def _slot_roll_model(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *,
                                      pat + 1, 0), 0).astype(np.int32)
         h = np.where(act, h + 1, h).astype(np.int32)
         last = np.where(act, t, last)
-        act = act & ~((pat >= lane_delta.numpy()) | (h >= lane_cap.numpy()))
+        act = act & ~(((pat >= lane_delta.numpy()) & (h >= min_probes))
+                      | (h >= lane_cap.numpy()))
     rows = np.arange(h.shape[0])
     pick = np.maximum(last, 0)
     ts = np.where((last >= 0)[:, None], snap_s.numpy()[rows, pick],
@@ -1278,6 +1279,64 @@ def test_gpu_slot_roll_phi_at_every_count(cuda, k, phi):
             kw = dict(k=k, chunk=chunk, phi=p)
             _assert_same_lanes(t_sr.slot_roll(*args, **kw),
                                t_sr.slot_roll_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("w,chunk,k", [(37, 4, 10), (1024, 8, 100)])
+@pytest.mark.parametrize("min_probes", [1, 10])
+def test_slot_roll_min_probes_holds_patience_back(w, chunk, k, min_probes):
+    """``min_probes`` gates the patience exit (a cascade's ``tau``): on
+    the CPU the wrapper is ``chunk`` calls of ``slot_step`` with the
+    gate, and the numpy model of the kernel's steps; at 1 it is the seed
+    chain; at 10 no lane leaves by patience before 10 probes, and a lane
+    the ungated roll let go earlier is still active or left later."""
+    from repro_torch.kernels import slot_roll as t_sr
+
+    args = slot_roll_args(slot_roll_case(w, chunk, k))
+    snap_s, snap_i, cnts, lanes, dl, cap = args
+    kw = dict(k=k, chunk=chunk, phi=95.0)
+    got = tops.slot_roll(*args, **kw, min_probes=min_probes)
+    st = lanes
+    for t in range(chunk):
+        phi_v = 100.0 * (k - cnts[:, t]).to(torch.float32) / k
+        st = t_sr.slot_step(st, snap_s[:, t], snap_i[:, t], phi_v, phi=95.0,
+                            lane_delta=dl, lane_cap=cap,
+                            min_probes=min_probes)
+    _assert_same_lanes(got, st)
+    model = _slot_roll_model(*args, **kw, min_probes=min_probes)
+    for f, m in zip(got._fields, model):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), m, err_msg=f)
+    free = tops.slot_roll(*args, **kw)
+    if min_probes == 1:
+        _assert_same_lanes(got, _seed_slot_chain(*args, **kw))
+        return
+    left = lanes.active & ~got.active
+    by_patience = left & (got.h < cap)
+    assert (got.h[by_patience] >= min_probes).all()
+    # the gate moved some exit: a lane the ungated roll let go early
+    early = lanes.active & ~free.active & (free.h < min_probes) \
+        & (free.h < cap)
+    assert early.any()
+    assert (got.active[early] | (got.h[early] > free.h[early])).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("min_probes", [1, 10])
+def test_gpu_slot_roll_min_probes_matches_plain(cuda, min_probes):
+    """The kernel against ``slot_roll_plain`` with ``min_probes`` at the
+    benchmark's wave (1,024 lanes, chunk 8, k 100), bit for bit, one
+    launch; at 10 the gate holds some lane past its patience exit."""
+    from repro_torch.kernels import slot_roll as t_sr
+
+    args = slot_roll_args(slot_roll_case(1024, 8, 100), cuda)
+    kw = dict(k=100, chunk=8, phi=95.0, min_probes=min_probes)
+    want = t_sr.slot_roll_plain(*args, **kw)
+    before = t_sr.slot_roll.launches
+    got = tops.slot_roll(*args, **kw)
+    torch.cuda.synchronize()
+    assert t_sr.slot_roll.launches == before + 1
+    _assert_same_lanes(got, want)
+    free = t_sr.slot_roll_plain(*args, **dict(kw, min_probes=1))
+    assert torch.equal(got.h, free.h) == (min_probes == 1)
 
 
 @pytest.mark.gpu

@@ -3,7 +3,8 @@
 nest, ``ServeReport.host_syncs`` against the spans and a hand count,
 the same answers with the profiler on and off, and no span entered
 with it off; the live write path's spans under a hook, and
-``ServeReport.hook_ms``.  On the card (``-m gpu``): the fused serve
+``ServeReport.hook_ms``; a cascade serve's ``serve.tau`` spans and
+``ServeReport.tau_ms``.  On the card (``-m gpu``): the fused serve
 blocks once a harvest and waits once for each harvest's exits.
 
 The gpu case runs on the card without JAX:
@@ -202,6 +203,42 @@ def test_hook_ms_sums_the_hook(index, corpus):
     rep = ws.serve(corpus.queries[:40], on_wave=lambda w: time.sleep(0.002))
     assert rep.hook_ms >= 2.0 * rep.waves
     assert _live_serve(index, corpus).hook_ms > 0.0
+
+
+def _exit_all(device="cpu"):
+    """A forest of one leaf whose margin says Exit to every query."""
+    from repro_torch.trees.torch_infer import ensemble_from_arrays
+    return ensemble_from_arrays([[-1]], [[0.0]], [[0]], [[0]], [[5.0]], 0.0,
+                                1, device=device)
+
+
+@pytest.mark.parametrize("learned", [True, False],
+                         ids=["cascade", "patience"])
+def test_cascade_serve_records_tau_spans(index, corpus, learned):
+    """A cascade serve holds one ``serve.tau`` span inside each
+    ``serve.advance`` and sums their host ms in ``tau_ms``; a patience
+    serve holds none and reads 0."""
+    from repro_torch.core.policies import cascade_patience, patience
+    pol = cascade_patience(_CFG["n_probe"], _exit_all(), _CFG["delta"],
+                           _CFG["phi"], k=_CFG["k"], tau=4) if learned \
+        else patience(_CFG["n_probe"], _CFG["delta"], _CFG["phi"],
+                      k=_CFG["k"])
+    ws = WaveScheduler(index, policy=pol, **_CFG)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep = ws.serve(corpus.queries[:40])
+    spans = _spans(prof)
+    names = [n for n, _, _ in spans]
+    if not learned:
+        assert "serve.tau" not in names
+        assert rep.tau_ms == 0.0 and rep.clf_exits == 0
+        return
+    assert names.count("serve.tau") == names.count("serve.advance") \
+        == rep.waves
+    for i, (n, _, _) in enumerate(spans):
+        if n == "serve.tau":
+            assert _innermost_parent(spans, i) == "serve.advance"
+    assert rep.tau_ms > 0.0
+    assert set(rep.probes.values()) == {4} and rep.clf_exits == 40
 
 
 @pytest.mark.gpu
