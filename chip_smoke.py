@@ -42,8 +42,11 @@ a line of its own:
    fused kernel (R*@1, R*@k, mRR@10, C, wall, speedup, launches; every
    learned query's probes within [tau, N], +Patience's C at most the
    weighted classifier's); both cascades' fused search against the
-   kernel pair, and the features built offline against the online ones
-   at tau and across batch sizes, bit for bit;
+   kernel pair; +Patience served by the wave scheduler
+   (``learned_serve``: one ``tau_stage`` launch a wave, the answers,
+   probes and classifier exits of fused ``search``); and the features
+   built offline against the online ones at tau and across batch
+   sizes, bit for bit;
 4. the live index on that index (``LiveIndex``, delta capacity 4,096):
    1,024 adds and 256 deletes before serving, then the same 1,024
    queries served through a version registry while every wave adds 64
@@ -124,7 +127,10 @@ a line of its own:
    10), beside the stable sort and ``torch.topk``; ``slot_roll`` at the
    benchmark's wave (1,024 lanes, chunk 8, k 100 and 10) beside the
    chain of PyTorch ops it replaced, by events and by host clock
-   around a synchronised call; ``flash_attention``
+   around a synchronised call; ``tau_stage`` at the ``star-cascade``
+   cell's wave (1,024 lanes, chunk 8, k 100, d 768, tau 10, 100 trees
+   of depth 6) bit for bit beside the chain of PyTorch ops it
+   replaced, timed the same ways; ``flash_attention``
    (the prefill's 96 x 2,048 x 128 bf16,
    and MiniCPM3's 160 x 2,048 at qk 96, v 64 beside the
    ``scaled_dot_product_attention`` backend PyTorch picks there)
@@ -203,6 +209,8 @@ RECALL_GAP_MAX = 0.01          # the reference's make bench-smoke gate
 N_PROBE, TAU, DELTA, PHI = 80, 10, 7, 95.0
 # the benchmark cells' wave (portbench/): its slot_roll timing rows
 SLOT_ROLL_LANES, SLOT_ROLL_CHUNK = 1024, 8
+# the star-cascade cell's exit trees: its tau_stage timing row
+TAU_STAGE_TREES, TAU_STAGE_DEPTH = 100, 6
 N_DOCS, N_CLUSTERS, N_QUERIES = 1_000_000, 8192, 1024
 # the late-probe timing row: probe LATE_PROBE (0-based) of a search whose
 # mean probe count C is about 28 at these widths
@@ -308,6 +316,85 @@ def slot_roll_inputs(w, chunk, k, dev, *, seed):
             ints(0, 1 << 30, w, chunk, k), cnts.to(torch.int32), lanes,
             torch.full((w,), DELTA, dtype=torch.int32, device=dev),
             torch.full((w,), N_PROBE, dtype=torch.int32, device=dev))
+
+
+def tau_stage_inputs(w, chunk, k, d, tau, n_trees, depth, dev, *, seed):
+    """A wave's ``tau_stage`` arguments on ``dev`` (the lane tensors in
+    the wrapper's order, the trees, the knobs) and the least bytes the
+    stage moves: lanes fresh (h 0), before, at and past tau's slot, 15%
+    inactive; snapshots of descending scores, 30% of them with a tail of
+    -inf (id -1), ids drawn without repeats from 3k so that RS_1 and the
+    snapshots overlap; ``n_trees`` full trees of ``depth`` that split on
+    features of the whole Table-1 layout at some lane's value of the
+    feature, the base putting the margins of the lanes at tau on both
+    sides of 0."""
+    import torch
+    from repro_torch.core.features import FeatureExtras, feature_matrix
+    from repro_torch.trees.torch_infer import TreeEnsemble, predict_margin
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    hist_w = max(tau - 1, 1)
+    snap_s = randn(w, chunk, k).sort(dim=-1, descending=True).values
+    valid = torch.where(rand(w, chunk) < 0.3, ints(0, k + 1, w, chunk), k)
+    tail = torch.arange(k, device=dev) >= valid[..., None]
+    snap_s = snap_s.masked_fill(tail, float("-inf"))
+    pick = rand(w, chunk, 3 * k).argsort(-1)[..., :k].to(torch.int32)
+    snap_i = torch.where(tail, -1, pick)
+    rs1 = rand(w, 3 * k).argsort(-1)[:, :k].to(torch.int32)
+    rs1 = torch.where(rand(w, k) < 0.2, -1, rs1)
+    h = ints(0, tau + chunk + 2, w)
+    h = torch.where(rand(w) < 0.25, 0, h)
+    h = torch.where(rand(w) < 0.3,
+                    (tau - 1 - ints(0, chunk, w)).clamp(min=0), h)
+    active = rand(w) < 0.85
+    qvec, sims = randn(w, d), randn(w, tau)
+    phi, phi1 = 100 * rand(w, hist_w), 100 * rand(w, hist_w)
+    t_tau = (tau - 1 - h).long()
+    stage = active & (t_tau >= 0) & (t_tau < chunk)
+    rows = torch.arange(w, device=dev)
+    fm = feature_matrix(FeatureExtras(
+        queries=qvec, centroid_sims=sims,
+        topk_scores=snap_s[rows, t_tau.clamp(0, chunk - 1)],
+        phi_hist=phi, phi1_hist=phi1), with_intersections=True)
+    n_inner, m = 2 ** depth - 1, 2 ** (depth + 1) - 1
+    node = torch.arange(m, device=dev, dtype=torch.int32)
+    inner = node < n_inner
+    feat = torch.where(inner, ints(0, fm.shape[1], n_trees, m), -1)
+    thresh = torch.where(inner, fm[ints(0, w, n_trees, m).long(),
+                                   feat.clamp(min=0).long()], 0.0)
+    left = torch.where(inner, 2 * node + 1, node).expand(n_trees, m)
+    right = torch.where(inner, 2 * node + 2, node).expand(n_trees, m)
+    value = torch.where(inner, 0.0, 0.5 * randn(n_trees, m))
+    trees = dict(feat=feat, thresh=thresh, left=left.contiguous(),
+                 right=right.contiguous(), value=value, max_depth=depth)
+    raw = predict_margin(TreeEnsemble(**trees, base=torch.zeros((),
+                                                                device=dev)),
+                         fm)
+    clf = TreeEnsemble(**trees, base=-raw[stage].median())
+    lanes = (snap_s, snap_i, ints(0, k + 1, w, chunk), h, active, qvec,
+             sims, rs1, phi, phi1,
+             torch.tensor(7, dtype=torch.int64, device=dev),
+             ints(tau + 1, 81, w))
+    # the least bytes: ids and count of each history column the chunk
+    # writes, RS_1 and both history rows in and out, each lane's h,
+    # active, cap in and out, and every node once
+    col = torch.arange(hist_w, device=dev)[None, :] + 1 - h[:, None]
+    cols = int(((col >= 0) & (col < chunk) & (h[:, None] + col < N_PROBE)
+                & active[:, None]).sum()) if tau > 1 else 0
+    n_bytes = (cols * (k + 1) * 4 + w * (2 * k + 4 * hist_w) * 4
+               + w * 13 + n_trees * m * 20)
+    kw = dict(tau=tau, k=k, chunk=chunk, n_probe=N_PROBE, threshold=0.5)
+    return lanes, clf, kw, n_bytes, int(stage.sum())
 
 
 def bound(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -1696,12 +1783,15 @@ def learned_exit(ctx, index, corpus, queries, docs_t, exact, *,
                  pair_queries=256, feature_block=128, spread=SPREAD,
                  timed_calls=5):
     """Phases ``learned_train``, ``learned_search``,
-    ``learned_fused_vs_pair`` and ``learned_features``: train the four
+    ``learned_fused_vs_pair``, ``learned_serve`` and
+    ``learned_features``: train the four
     forests, run Table 2's eight strategies on ``queries`` through the
     fused kernel (one ``ivf_scan_merge`` launch per chunk of 4 probes;
     the median wall of ``timed_calls`` after a warm one; A-kNN and
     +Patience once more under the profiler),
-    hold both cascades' fused search against the kernel pair, and hold
+    hold both cascades' fused search against the kernel pair, serve
+    +Patience through the wave scheduler (one ``tau_stage`` launch a
+    wave) against its fused search, and hold
     the features built offline against the online ones and across batch
     sizes, bit for bit.  Returns the printed rows."""
     import numpy as np
@@ -1821,6 +1911,51 @@ def learned_exit(ctx, index, corpus, queries, docs_t, exact, *,
             print(f"{name}: fused == per-probe kernel pair bit for bit on "
                   f"{q.shape[0]} queries (ids, probes, scores, features; "
                   f"C={fused.probes.float().mean().item():.4f})")
+
+    with ctx.phase("learned_serve"):
+        # the cascade served by the wave scheduler at this script's wave:
+        # its stage at tau one tau_stage launch a fused wave, its answers,
+        # probes and classifier exits those of fused search
+        from repro_torch.core.serving import WaveScheduler
+        from repro_torch.trees.torch_infer import predict_margin
+        pol = pols[pat]
+        ws = WaveScheduler(index, policy=pol, wave_size=B, chunk=CHUNK)
+        ws.serve(queries[:B])
+        ctx.sync()
+        ctx.reset()
+        t0 = time.perf_counter()
+        rep = ws.serve(queries)
+        ctx.sync()
+        wall = (time.perf_counter() - t0) * 1000
+        counts = ctx.read(f"learned serve {pat} (WaveScheduler, fused)",
+                          ["ivf_scan_merge", "row_topk", "slot_roll",
+                           "delta_scan", "tau_stage"],
+                          absent=["ivf_scan", "topk_merge",
+                                  "ivf_scan_merge+delta"])
+        if counts["tau_stage"] != rep.waves:
+            raise AssertionError(f"{counts['tau_stage']} tau_stage "
+                                 f"launches in {rep.waves} waves")
+        n_q = queries.shape[0]
+        ref = results[pat]
+        if not np.array_equal(np.stack([rep.results[i] for i in range(n_q)]),
+                              ref.topk_ids.cpu().numpy()):
+            raise AssertionError(f"{pat}: served ids != fused search")
+        if not np.array_equal([rep.probes[i] for i in range(n_q)],
+                              ref.probes.cpu().numpy()):
+            raise AssertionError(f"{pat}: served probes != fused search")
+        says = int((torch.sigmoid(predict_margin(pol.clf, ref.features))
+                    >= pol.clf_threshold).sum())
+        if rep.clf_exits != says:
+            raise AssertionError(f"{pat}: {rep.clf_exits} classifier exits "
+                                 f"served, {says} in fused search")
+        print(json.dumps(dict(
+            serve=pat, queries=n_q, waves=rep.waves, wall_ms=wall,
+            queries_per_s=n_q / (wall / 1000), clf_exits=rep.clf_exits,
+            tau_ms=rep.tau_ms, tau_stage_launches=counts["tau_stage"],
+            C=float(np.mean([rep.probes[i] for i in range(n_q)])))))
+        print(f"learned serve {pat}: == fused search bit for bit (ids, "
+              f"probes, {says} classifier exits); one tau_stage launch in "
+              f"each of {rep.waves} waves")
 
     with ctx.phase("learned_features"):
         # delta_scan at the shapes the learned path gives it: the centroid
@@ -3716,6 +3851,7 @@ def main() -> None:
     from repro_torch.kernels import ivf_scan_merge as k_sm
     from repro_torch.kernels import row_topk as k_rt
     from repro_torch.kernels import slot_roll as k_sr
+    from repro_torch.kernels import tau_stage as k_ts
     from repro_torch.kernels import topk_merge as k_tm
     from repro_torch.launch.serve import MutationStream
 
@@ -3726,6 +3862,7 @@ def main() -> None:
                 "topk_merge": (k_tm.topk_merge, "launches"),
                 "row_topk": (k_rt.row_topk, "launches"),
                 "slot_roll": (k_sr.slot_roll, "launches"),
+                "tau_stage": (k_ts.tau_stage, "launches"),
                 "ivf_scan_merge": (k_sm.ivf_scan_merge, "launches"),
                 "delta_scan": (k_ds.delta_scan, "launches"),
                 "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
@@ -4688,6 +4825,55 @@ def main() -> None:
                 bound=bound(SLOT_ROLL_LANES * (SLOT_ROLL_CHUNK * 4 + 26
                                                + kk * 16), 0),
                 library_ms=None))
+        # tau_stage at the star-cascade cell's wave: 1,024 lanes, chunk
+        # 8, k 100, d 768, tau 10, 100 trees of depth 6; for the check
+        # each side counts its exits into a clone of clf_exits, the timed
+        # calls count theirs into the one tensor
+        name = "tau_stage"
+        lanes, clf, kw, st_bytes, at_tau = tau_stage_inputs(
+            SLOT_ROLL_LANES, SLOT_ROLL_CHUNK, K, D, TAU, TAU_STAGE_TREES,
+            TAU_STAGE_DEPTH, dev, seed=36)
+
+        def stage_run(fn):
+            return fn(*lanes, clf, **kw)
+
+        g, w = (fn(*(x.clone() for x in lanes), clf, **kw)
+                for fn in (k_ts.tau_stage, k_ts.tau_stage_plain))
+        sync()
+        if not all(torch.equal(x.reshape(-1).view(torch.uint8),
+                               y.reshape(-1).view(torch.uint8))
+                   for x, y in zip(g, w)):
+            raise AssertionError(f"{name}: not bit-equal")
+        exits = int(w.clf_exits) - int(lanes[10])
+        if not 0 < exits < at_tau:
+            raise AssertionError(f"{name}: {exits} exits of {at_tau} lanes "
+                                 f"at tau")
+        walls = {}
+        for label, fn in (("kernel", k_ts.tau_stage),
+                          ("chain", k_ts.tau_stage_plain)):
+            stage_ms = []
+            for _ in range(50):
+                sync()
+                t0 = time.perf_counter()
+                stage_run(fn)
+                sync()
+                stage_ms.append((time.perf_counter() - t0) * 1e3)
+            walls[label] = float(np.median(stage_ms))
+        print(f"{name}: bit-equal, {exits} exits of {at_tau} lanes at tau; "
+              f"host clock around a synchronised call, median of 50: "
+              f"kernel {walls['kernel']:.6f} ms, chain of PyTorch ops "
+              f"{walls['chain']:.6f} ms")
+        rows.append(dict(
+            name=name, counter="tau_stage", route="cuda",
+            source="src/repro_torch/csrc/tau_stage.cu",
+            replaces="none: core/serving.py:_tau_stage's chain of PyTorch "
+                     "ops (jnp ops in the reference)",
+            max_abs_err=0.0,
+            ms=time_call(name, lambda: stage_run(k_ts.tau_stage), 50,
+                         profiled=True),
+            plain_ms=time_call(f"{name} plain", lambda: stage_run(
+                k_ts.tau_stage_plain), 20),
+            bound=bound(st_bytes, 0), library_ms=None))
         rows += model_zoo_timing(ctx, get_arch(LM_ARCH).model,
                                  rs_params["table"],
                                  rs_params["linear_table"], rs_rows)

@@ -41,7 +41,6 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike
-from repro_torch.core.features import FeatureExtras, feature_matrix
 from repro_torch.core.ivf import (DeltaView, IVFIndex, as_queries,
                                   centroid_rank, check_same_device,
                                   index_device, intersection_pct,
@@ -53,8 +52,8 @@ from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
                                        Policy)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.slot_roll import Lanes, slot_step
+from repro_torch.kernels.tau_stage import check_trees
 from repro_torch.trace import span
-from repro_torch.trees.torch_infer import predict_margin
 
 
 class TauLanes(NamedTuple):
@@ -151,42 +150,20 @@ def _tau_stage(policy: Policy, state: LaneState, snap_s: torch.Tensor,
     Each lane records the slots of the chunk whose probe lies in
     ``search``'s windows: RS_1 after its first probe, phi (from the
     count, as the roll computes it) and the share of RS_1 kept after
-    probes 2..tau.  Lanes whose probe ``tau`` falls in this wave build
-    the Table-1 matrix from that slot's snapshot, walk the trees, and
-    take ``lane_cap = tau`` where the classifier says Exit.  Returns the
-    lanes, their exits counted in ``state.tau``, and the caps."""
+    probes 2..tau.  Lanes whose probe ``tau`` falls in this wave read
+    the Table-1 features from that slot's snapshot, walk the trees, and
+    take ``lane_cap = tau`` where the classifier says Exit: one
+    ``tau_stage`` launch on the card.  Returns the lanes, their exits
+    counted in ``state.tau``, and the caps."""
     ln, rec = state.lanes, state.tau
-    tau, dev = policy.tau, ln.h.device
-    h0 = ln.h[:, None]
-    # the slots that merged: an active lane's, inside the probe budget
-    ok = (h0 + torch.arange(chunk, device=dev)[None, :] < n_probe) \
-        & ln.active[:, None]
-    rs1 = torch.where((ok[:, 0] & (ln.h == 0))[:, None], snap_i[:, 0],
-                      rec.rs1_ids)
-    phi_hist, phi1_hist = rec.phi_hist, rec.phi1_hist
-    if tau > 1:
-        # history column c holds probe c + 2 (0-based c + 1): slot c + 1 - h
-        slot = torch.arange(phi_hist.shape[1], device=dev)[None, :] + 1 - h0
-        at = slot.clamp(0, chunk - 1)
-        upd = (slot >= 0) & (slot < chunk) & torch.gather(ok, 1, at)
-        phi = 100.0 * (k - cnts).to(torch.float32) / k
-        phi1 = intersection_pct(rs1[:, None, :], snap_i)
-        phi_hist = torch.where(upd, torch.gather(phi, 1, at), phi_hist)
-        phi1_hist = torch.where(upd, torch.gather(phi1, 1, at), phi1_hist)
-    t_tau = tau - 1 - ln.h
-    stage = ln.active & (t_tau >= 0) & (t_tau < chunk)
-    rows = torch.arange(ln.h.shape[0], device=dev)
-    fm = feature_matrix(FeatureExtras(
-        queries=state.qvec, centroid_sims=rec.centroid_sims,
-        topk_scores=snap_s[rows, t_tau.clamp(0, chunk - 1).long()],
-        phi_hist=phi_hist, phi1_hist=phi1_hist), with_intersections=True)
-    says_exit = torch.sigmoid(predict_margin(policy.clf, fm)) \
-        >= policy.clf_threshold
-    exits = stage & says_exit
+    out = kops.tau_stage(
+        snap_s, snap_i, cnts, ln.h, ln.active, state.qvec,
+        rec.centroid_sims, rec.rs1_ids, rec.phi_hist, rec.phi1_hist,
+        rec.clf_exits, lane_cap, policy.clf, tau=policy.tau, k=k,
+        chunk=chunk, n_probe=n_probe, threshold=policy.clf_threshold)
     return (state._replace(tau=rec._replace(
-        rs1_ids=rs1, phi_hist=phi_hist, phi1_hist=phi1_hist,
-        clf_exits=rec.clf_exits + exits.sum())),
-        torch.where(exits, tau, lane_cap))
+        rs1_ids=out.rs1_ids, phi_hist=out.phi_hist,
+        phi1_hist=out.phi1_hist, clf_exits=out.clf_exits)), out.lane_cap)
 
 
 def _advance(index: IVFIndex, state: LaneState,
@@ -531,7 +508,7 @@ class WaveScheduler:
         self.rebuilder = rebuilder
         self._pinned = None        # version lanes are probing against
         if self._learned:
-            self._check_learned()
+            self._check_learned(index.centroids.shape[1])
 
     def _policy_knobs(self, given: dict) -> dict:
         """The exit knobs ``self.policy`` holds (its ``k`` and
@@ -551,9 +528,10 @@ class WaveScheduler:
                              f"scheduler's knobs: {', '.join(off)}")
         return dict(given, **{key: getattr(pol, key) for key in keys})
 
-    def _check_learned(self) -> None:
+    def _check_learned(self, dim: int) -> None:
         """Raise unless the learned ``self.policy`` is one the scheduler
-        serves (the class docstring)."""
+        serves (the class docstring) and its trees split on the Table-1
+        features of ``dim``-wide queries."""
         pol = self.policy
         for what, on in (("deadline_ms", self.deadline_ms is not None),
                          ("registry", self.registry is not None),
@@ -569,6 +547,7 @@ class WaveScheduler:
         check_same_device(self.device, "a tree of the policy", clf.feat,
                           clf.thresh, clf.left, clf.right, clf.value,
                           clf.base)
+        check_trees(clf, dim, pol.tau)
 
     @property
     def _learned(self) -> bool:

@@ -24,6 +24,7 @@ from repro_torch.kernels import ivf_scan as _scan
 from repro_torch.kernels import ivf_scan_merge as _sm
 from repro_torch.kernels import row_topk as _rt
 from repro_torch.kernels import slot_roll as _sr
+from repro_torch.kernels import tau_stage as _ts
 from repro_torch.kernels import topk_merge as _tm
 
 
@@ -119,6 +120,21 @@ def slot_roll(snap_s, snap_i, cnts, lanes, lane_delta, lane_cap, *, k: int,
                          _sr.Lanes(*(t.contiguous() for t in lanes)),
                          lane_delta.contiguous(), lane_cap.contiguous(),
                          k=k, chunk=chunk, phi=phi, min_probes=min_probes)
+
+
+def tau_stage(snap_s, snap_i, cnts, h, active, qvec, centroid_sims, rs1_ids,
+              phi_hist, phi1_hist, clf_exits, lane_cap, clf, *, tau: int,
+              k: int, chunk: int, n_probe: int,
+              threshold: float) -> _ts.TauStageOut:
+    """A learned exit's stage in one fused wave (``tau_stage.tau_stage``):
+    from the chunk's snapshots and counts, the lanes' RS_1 and history
+    rows, and at each lane's slot of probe ``tau`` the trees ``clf`` on
+    its Table-1 features, its cap set to ``tau`` where they say Exit and
+    each exit counted into ``clf_exits`` in place."""
+    return _ts.tau_stage(*(t.contiguous() for t in (
+        snap_s, snap_i, cnts, h, active, qvec, centroid_sims, rs1_ids,
+        phi_hist, phi1_hist)), clf_exits, lane_cap.contiguous(), clf,
+        tau=tau, k=k, chunk=chunk, n_probe=n_probe, threshold=threshold)
 
 
 def embedding_bag(table, ids) -> torch.Tensor:

@@ -33,6 +33,16 @@ class TreeEnsemble:
     def n_trees(self) -> int:
         return self.feat.shape[0]
 
+    @property
+    def max_feature(self) -> int:
+        """The largest split feature, -1 where every node is a leaf: one
+        read of ``feat``, kept while ``feat`` is the same tensor."""
+        seen = self.__dict__.get("_max_feature")
+        if seen is None or seen[0] is not self.feat:
+            seen = (self.feat, int(self.feat.max()))
+            self.__dict__["_max_feature"] = seen
+        return seen[1]
+
 
 def predict_margin(ens: TreeEnsemble, x: torch.Tensor) -> torch.Tensor:
     """(B, F) -> (B,) raw margin (sum of leaf values + base).

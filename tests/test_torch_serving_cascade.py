@@ -30,6 +30,7 @@ from repro_torch.core.policies import (cascade_patience,  # noqa: E402
                                        patience, regression)
 from repro_torch.core.serving import WaveScheduler  # noqa: E402
 from repro_torch.index import IndexRegistry, LiveIndex, version_of  # noqa
+from repro_torch.kernels import tau_stage  # noqa: E402
 from repro_torch.trees.torch_infer import predict_margin  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -148,7 +149,7 @@ def test_stage_reads_search_s_features(bench, monkeypatch, tau, chunk):
     forest, cfg = trees(bench, tau)
     pol = harness.program_policy(forest, cfg, CPU)
     built, seen = [], {}
-    feature_matrix, stage = serving.feature_matrix, serving._tau_stage
+    feature_matrix, stage = tau_stage.feature_matrix, serving._tau_stage
 
     def keep(extras, **kw):
         built.append(feature_matrix(extras, **kw))
@@ -162,7 +163,7 @@ def test_stage_reads_search_s_features(bench, monkeypatch, tau, chunk):
             seen[int(state.qid[lane])] = built[-1][lane]
         return out
 
-    monkeypatch.setattr(serving, "feature_matrix", keep)
+    monkeypatch.setattr(tau_stage, "feature_matrix", keep)
     monkeypatch.setattr(serving, "_tau_stage", at_tau)
     WaveScheduler(index, policy=pol, **knobs(
         cfg, chunk=chunk, wave_size=24)).serve(c.pool)
