@@ -12,8 +12,8 @@ a line of its own:
 1. device and build, and the built kernels' instructions: the bf16
    ``flash_attention`` must hold wgmma (HGMMA) and TMA loads (UTMALDG),
    ``delta_scan`` and ``ivf_scan_merge`` no tensor-core instruction
-   (HMMA, HGMMA), the staged ``ivf_scan_merge`` a bulk async copy
-   (UBLKCP);
+   (HMMA, HGMMA), both staged ``ivf_scan_merge`` instantiations (a
+   ring of whole rows, a ring of slabs) a bulk async copy (UBLKCP);
 2. each kernel against its plain version at main-path shapes, on
    integer-valued inputs (bit-equal, ties included) and on L2-normalised
    Gaussian inputs (scores within 1e-5, ids equal up to near-tie swaps);
@@ -130,7 +130,15 @@ a line of its own:
    around a synchronised call; ``tau_stage`` at the ``star-cascade``
    cell's wave (1,024 lanes, chunk 8, k 100, d 768, tau 10, 100 trees
    of depth 6) bit for bit beside the chain of PyTorch ops it
-   replaced, timed the same ways; ``flash_attention``
+   replaced, timed the same ways; ``ivf_scan_merge`` at the
+   ``nq-bulk`` cell's rows (phases ``wide_*``: 4,096 of its lists at
+   d 4,096, its wave of 1,024 lanes, chunk 8, k 100; the ring holds
+   slabs): ``WaveScheduler`` serves 2,048 queries with the counters
+   zeroed just before, one fused launch through the ring a wave, ==
+   fused ``search``; the wave's first chunk bit for bit the kernel's
+   unstaged path and within 1e-5 of the plain version (bit for bit on
+   integer inputs, that chunk and the next), timed with the unstaged
+   path and the plain version beside the bytes bound; ``flash_attention``
    (the prefill's 96 x 2,048 x 128 bf16,
    and MiniCPM3's 160 x 2,048 at qk 96, v 64 beside the
    ``scaled_dot_product_attention`` backend PyTorch picks there)
@@ -211,6 +219,10 @@ N_PROBE, TAU, DELTA, PHI = 80, 10, 7, 95.0
 SLOT_ROLL_LANES, SLOT_ROLL_CHUNK = 1024, 8
 # the star-cascade cell's exit trees: its tau_stage timing row
 TAU_STAGE_TREES, TAU_STAGE_DEPTH = 100, 6
+# the nq-bulk cell's deployment (4,096-d rows): WIDE_LISTS of its 16,384
+# lists at its mean list size (~13 GB of rows), WIDE_QUERIES of its queries
+WIDE_CONFIG = ROOT / "portbench" / "configs" / "nq-e5-mistral.json"
+WIDE_LISTS, WIDE_QUERIES, WIDE_SEED = 4096, 2048, 3_537_000_001
 N_DOCS, N_CLUSTERS, N_QUERIES = 1_000_000, 8192, 1024
 # the late-probe timing row: probe LATE_PROBE (0-based) of a search whose
 # mean probe count C is about 28 at these widths
@@ -3821,6 +3833,202 @@ def dryrun_phase(ctx, gat_forward):
     return recs
 
 
+def fused_unstaged(queries, docs, ids2d, block_offsets, sizes, run_scores,
+                   run_ids, *, k, list_pad, chunk, blk_l):
+    """``ivf_scan_merge``'s kernel with no ring (stages 0: list rows and
+    ids read from global memory), the path the wrapper takes only where
+    ``cp.async.bulk`` cannot copy the rows; the wrapper has no switch."""
+    import torch
+    from repro_torch.kernels import _build
+
+    b, d = queries.shape
+    dev = queries.device
+    out_s = torch.empty((b, chunk, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, chunk, k), dtype=torch.int32, device=dev)
+    cnt = torch.empty((b, chunk), dtype=torch.int32, device=dev)
+    _build.launch("ivf_scan_merge", dev,
+                  *(x.data_ptr() for x in (queries, docs, ids2d,
+                                           block_offsets, sizes, run_scores,
+                                           run_ids)),
+                  None, None, None, None, out_s.data_ptr(), out_i.data_ptr(),
+                  cnt.data_ptr(), b, d, k, chunk, list_pad, blk_l, 0, 0, d)
+    return out_s, out_i, cnt
+
+
+def wide_rows(ctx, *, n_lists=WIDE_LISTS, n_queries=WIDE_QUERIES,
+              lanes=SLOT_ROLL_LANES, reps=20):
+    """The fused kernel at the ``nq-bulk`` cell's 4,096-d rows, where its
+    ring holds slabs of a tile's rows (phases ``wide_*``).  The corpus is
+    the cell's (``portbench/corpus.make`` from its configuration), its
+    list count cut to ``n_lists`` and its mean list kept.
+
+    ``wide_serve``: ``WaveScheduler`` at the cell's knobs (``lanes``
+    lanes, chunk 8, k 100, N 80, patience 7/95) serves ``n_queries``
+    queries, the launch counters zeroed just before: every wave one
+    fused launch through the ring (``ivf_scan_merge`` launches ==
+    ``ring_launches`` == waves), the answers and probes fused
+    ``search``'s.  ``wide_vs_plain``: the first chunk of a wave (the
+    first ``lanes`` queries' 8 nearest lists, an empty running top-k)
+    through the wrapper, bit for bit the kernel's unstaged path, and
+    against the plain version: scores within ATOL, near-tie id swaps
+    only.  ``wide_timing``: the three by events (the wrapper by the
+    profiler too) beside the bytes bound of the slots' live rows, as
+    ``portbench/reference/counts.py`` counts a scan.  ``wide_integer``:
+    the documents and queries overwritten with integers in [-2, 2], so
+    every sum is exact: that chunk and the next one (the running top-k
+    carried) bit for bit the plain version.  Returns the kernels line's
+    row."""
+    import numpy as np
+    import torch
+    from portbench import corpus as corpus_mod
+    from repro_torch.core import policies, search
+    from repro_torch.core.ivf import IVFIndex
+    from repro_torch.core.serving import WaveScheduler
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_scan_merge as k_sm
+
+    dev, sync = ctx.dev, ctx.sync
+    cfg = json.loads(WIDE_CONFIG.read_text())
+    d, k, chunk, pad, blk_l = (cfg[key] for key in ("dim", "k", "chunk",
+                                                   "list_pad", "align"))
+    with ctx.phase("wide_corpus"):
+        cut = dict(cfg, n_lists=n_lists,
+                   n_docs=round(cfg["n_docs"] * n_lists / cfg["n_lists"]))
+        c = corpus_mod.make(cut, n_queries, WIDE_SEED, dev)
+        index = IVFIndex(c.centroids, c.docs, c.doc_ids, c.offsets, c.sizes,
+                         c.list_pad)
+        layout = k_sm.ring_layout(d, k, chunk, pad, True,
+                                  _build.max_shared_optin(dev))
+        sync()
+        print(f"wide corpus: {n_lists} lists of {cfg['name']}'s sizes "
+              f"(mean {float(c.sizes.float().mean()):.2f}, max "
+              f"{int(c.sizes.max())}), {c.docs.shape[0]} rows x {d} "
+              f"({c.docs.numel() * 4 / 1e9:.3f} GB); the ring's layout "
+              f"(stages, cols) {layout}")
+        if not layout[0] or layout[1] >= d:
+            raise AssertionError(f"the ring holds no slabs at d {d}: "
+                                 f"{layout}")
+
+    knobs = dict(wave_size=lanes, chunk=chunk, k=k, n_probe=cfg["n_probe"],
+                 delta=cfg["patience_delta"], phi=cfg["patience_phi"])
+    ws = WaveScheduler(index, **knobs)
+    with ctx.phase("wide_serve"):
+        ctx.reset()
+        sync()
+        t0 = time.perf_counter()
+        rep = ws.serve(c.pool)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = ctx.read("wide serve (WaveScheduler, fused, 4,096-d rows)",
+                          ["ivf_scan_merge", "ivf_scan_merge ring",
+                           "row_topk", "slot_roll"],
+                          absent=["ivf_scan_merge+delta", "delta_scan",
+                                  "ivf_scan", "topk_merge"])
+        if not (counts["ivf_scan_merge"] == counts["ivf_scan_merge ring"]
+                == rep.ring_launches == rep.waves):
+            raise AssertionError(
+                f"{counts['ivf_scan_merge']} fused launches, "
+                f"{rep.ring_launches} through the ring, in {rep.waves} "
+                f"waves")
+        ids = np.stack([rep.results[i] for i in range(n_queries)])
+        probes = np.array([rep.probes[i] for i in range(n_queries)])
+        pol = policies.patience(knobs["n_probe"], delta=knobs["delta"],
+                                phi=knobs["phi"], k=k)
+        res = search(index, c.pool, pol, use_fused_kernel=True, chunk=chunk)
+        if not np.array_equal(res.topk_ids.cpu().numpy(), ids):
+            raise AssertionError("wide serve's results != fused search")
+        if not np.array_equal(res.probes.cpu().numpy(), probes):
+            raise AssertionError("wide serve's probes != fused search")
+        print(f"wide serve: {n_queries} queries in {rep.waves} waves, "
+              f"{wall_ms:.3f} ms, mean probes {probes.mean():.2f}; "
+              f"{counts['ivf_scan_merge']} fused launches, "
+              f"{rep.ring_launches} through the ring; == fused search "
+              f"(ids and probes)")
+    del res, ws
+
+    q = c.pool[:lanes].contiguous()
+    near = torch.topk(q @ c.centroids.T, 2 * chunk, dim=1).indices
+    ids2d = c.doc_ids.reshape(-1, blk_l)
+    kw = dict(k=k, list_pad=pad, chunk=chunk, blk_l=blk_l)
+
+    def slots(part):
+        cids = near[:, part * chunk:(part + 1) * chunk]
+        return ((c.offsets[cids] // blk_l).to(torch.int32).reshape(-1)
+                .contiguous(), c.sizes[cids].reshape(-1).contiguous())
+
+    boffs, sizes = slots(0)
+    run_s = torch.full((lanes, k), float("-inf"), device=dev)
+    run_i = torch.full((lanes, k), -1, dtype=torch.int32, device=dev)
+    args = (q, c.docs, ids2d, boffs, sizes, run_s, run_i)
+    what = "ivf_scan_merge (4,096-d rows)"
+    with ctx.phase("wide_vs_plain"):
+        ring0 = k_sm.ivf_scan_merge.ring_launches
+        g = k_sm.ivf_scan_merge(*args, **kw)
+        u = fused_unstaged(*args, **kw)
+        sync()
+        if k_sm.ivf_scan_merge.ring_launches != ring0 + 1:
+            raise AssertionError(f"{what}: the wrapper's launch did not go "
+                                 f"through the ring")
+        if not all(torch.equal(x, y) for x, y in zip(g, u)):
+            raise AssertionError(f"{what}: not bit-equal to its unstaged "
+                                 f"path")
+        w = k_sm.ivf_scan_merge_plain(*args, **kw)
+        swaps, err = near_tie_swaps(g[0], g[1], w[0], w[1], what)
+        if ((g[2] != w[2]) & ~(g[1] != w[1]).any(-1)).any():
+            raise AssertionError(f"{what}: counts differ without an id swap")
+        print(f"{what}: bit-equal to its unstaged path; against plain "
+              f"max_abs_err {err}, near-tie id swaps {swaps}, count "
+              f"mismatches {int((g[2] != w[2]).sum())}")
+        del g, u, w
+
+    with ctx.phase("wide_timing"):
+        live = int(sizes.long().sum())
+        bnd = bound(lanes * d * 4 + live * (4 * d + 4) + lanes * k * 8
+                    + lanes * chunk * (k * 8 + 4 + 8), 2 * live * d)
+        ms = ctx.time_call(what, lambda: k_sm.ivf_scan_merge(*args, **kw),
+                           reps, profiled=True)
+        unstaged_ms = ctx.time_call(f"{what}, unstaged",
+                                    lambda: fused_unstaged(*args, **kw), reps)
+        plain_ms = ctx.time_call(f"{what} plain",
+                                 lambda: k_sm.ivf_scan_merge_plain(
+                                     *args, **kw), 3)
+        print(f"wide timing: {live} live rows over {lanes * chunk} slots "
+              f"({lanes} lanes x chunk {chunk}); bound {bnd[0]:.6f} ms "
+              f"({bnd[1]}); ring {layout} {ms:.6f} ms "
+              f"({100 * bnd[0] / ms:.2f}% of the bound), unstaged "
+              f"{unstaged_ms:.6f} ms ({100 * bnd[0] / unstaged_ms:.2f}%), "
+              f"plain {plain_ms:.6f} ms")
+        row = dict(name=what, counter="ivf_scan_merge", route="cuda",
+                   source="src/repro_torch/csrc/ivf_scan_merge.cu",
+                   replaces="src/repro/kernels/ivf_scan_merge.py:212",
+                   launches=counts["ivf_scan_merge"], max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound=bnd, library_ms=None)
+
+    with ctx.phase("wide_integer"):
+        gen = torch.Generator(device=dev).manual_seed(WIDE_SEED + 1)
+        for r0 in range(0, c.docs.shape[0], corpus_mod.FILL_ROWS):
+            c.docs[r0:r0 + corpus_mod.FILL_ROWS].random_(-2, 3,
+                                                         generator=gen)
+        q.random_(-2, 3, generator=gen)
+        for part in (0, 1):
+            if part:
+                boffs, sizes = slots(1)
+                run_s = torch.where(g[0][:, -1] > k_sm.VALID_MIN,
+                                    g[0][:, -1], float("-inf")).contiguous()
+                run_i = g[1][:, -1].contiguous()
+            args = (q, c.docs, ids2d, boffs, sizes, run_s, run_i)
+            g = k_sm.ivf_scan_merge(*args, **kw)
+            sync()
+            w = k_sm.ivf_scan_merge_plain(*args, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(g, w)):
+                raise AssertionError(f"{what}, integer inputs, chunk "
+                                     f"{part}: not bit-equal to plain")
+            print(f"{what}, integer inputs, chunk {part} "
+                  f"({'carried' if part else 'empty'} running top-k): "
+                  f"bit-equal to plain")
+    return row
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
@@ -3867,6 +4075,9 @@ def main() -> None:
                 "delta_scan": (k_ds.delta_scan, "launches"),
                 "ivf_scan_merge+delta": (k_sm.ivf_scan_merge,
                                          "delta_launches"),
+                # either of the two above whose rows came through the ring
+                "ivf_scan_merge ring": (k_sm.ivf_scan_merge,
+                                        "ring_launches"),
                 "flash_attention": (k_fa.flash_attention, "launches"),
                 "embedding_bag": (k_eb.embedding_bag, "launches")}
 
@@ -3989,13 +4200,16 @@ def main() -> None:
                                         for c in sass[fam].values()):
                 raise AssertionError(f"{fam} is missing or has a "
                                      f"tensor-core instruction")
-        # the staged instantiation (kStaged = true) streams list rows by
-        # cp.async.bulk
-        staged = [c for n, c in sass["ivf_scan_merge_kernel"].items()
-                  if "ILb1E" in n]
-        if not staged or not all(c["UBLKCP"] or c["LDGSTS"] for c in staged):
-            raise AssertionError("the staged ivf_scan_merge_kernel has no "
-                                 "async copy (UBLKCP or LDGSTS)")
+        # both staged instantiations (kStaged = true; kSlab = false, whole
+        # rows, and true, slabs) stream list rows by cp.async.bulk
+        for mode, tag in (("whole rows", "ILb1ELb0E"), ("slabs", "ILb1ELb1E")):
+            staged = [c for n, c in sass["ivf_scan_merge_kernel"].items()
+                      if tag in n]
+            if not staged or not all(c["UBLKCP"] or c["LDGSTS"]
+                                     for c in staged):
+                raise AssertionError(f"the staged ivf_scan_merge_kernel "
+                                     f"({mode}) is missing or has no async "
+                                     f"copy (UBLKCP or LDGSTS)")
 
     # -- 2. each kernel against its plain version ----------------------------
     rng = np.random.default_rng(0)
@@ -4077,12 +4291,14 @@ def main() -> None:
         every live buffer entry gated on one slot, an all-inactive wave
         (sizes 0, gates -2), the running k-th tied by candidates, k 1 and
         1,024, chunk 1 and 8, d 100 and d 30 (rows read from global
-        memory); bit-equal to the plain version."""
+        memory), d 4,096 at chunk 8 (the ring's slabs); bit-equal to the
+        plain version."""
         for name, kw in (("all gated on one slot", {}), ("inactive", {}),
                          ("ties", {}), ("k=1", dict(k=1)),
                          ("k=1024", dict(k=1024)), ("chunk=1", dict(chunk=1)),
                          ("chunk=8", dict(chunk=8)), ("d=100", dict(d=100)),
-                         ("d=30", dict(d=30))):
+                         ("d=30", dict(d=30)),
+                         ("d=4096, chunk=8", dict(d=4096, chunk=8))):
             k, chunk = kw.get("k", K), kw.get("chunk", CHUNK)
             q, docs, ids2d, boffs, sizes, run_s, run_i = kernel_inputs(
                 True, n_lists=64, **kw)
@@ -4882,6 +5098,10 @@ def main() -> None:
             zoo["minicpm3"]["flash_attention_launches"]))
         # the training paths' rows, timed in their phases
         rows += [flash_train, bag_train, flash_mla_train]
+
+    # -- 6, at the nq-bulk cell's 4,096-d rows (the ring's slabs) ---------
+    rows.append(wide_rows(ctx))
+    torch.cuda.empty_cache()
 
     with phase("serve_profile"):
         with profile(activities=activities) as prof:

@@ -50,6 +50,7 @@ from repro_torch.core.ivf import (DeltaView, IVFIndex, as_queries,
 from repro_torch.core.policies import (RUNG_CAP, RUNG_FORCE, RUNG_NONE,
                                        RUNG_TIGHTEN, DegradationLadder,
                                        Policy)
+from repro_torch.kernels import ivf_scan_merge as _fused
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.slot_roll import Lanes, slot_step
 from repro_torch.kernels.tau_stage import check_trees
@@ -292,6 +293,9 @@ class ServeReport:
     # -- a learned policy's stage at tau (zero without one) --
     clf_exits: int = 0          # queries the classifier exited at tau
     tau_ms: float = 0.0         # host ms in the serve.tau spans
+    # -- fused launches whose list rows came through the kernel's staged
+    # ring, whole rows or slabs (the wrapper's count; 0 off the card) --
+    ring_launches: int = 0
 
     @property
     def degraded_fraction(self) -> float:
@@ -361,6 +365,7 @@ class _Call:
         self.read = _HostReads()
         # (staged rows, qids, latency ms) of the exits a harvest staged
         self.exits: Optional[tuple] = None
+        self.ring0 = _fused.ivf_scan_merge.ring_launches
 
     def flag(self, qid: int, reason: str) -> None:
         old = self.rep.degraded.get(qid)
@@ -418,6 +423,7 @@ class _Call:
         rep.lane_steps = rep.waves * wave_slots
         rep.host_syncs = self.read.count
         rep.sync_wait_ms = self.read.wait_ms
+        rep.ring_launches = _fused.ivf_scan_merge.ring_launches - self.ring0
         return rep
 
 

@@ -39,6 +39,12 @@
 //   16-byte aligned), docs or ids not 16-byte aligned, blk_l not a
 //   multiple of 16, or no room for two stages: the consumers read rows
 //   and ids from global memory instead (`stages` = 0).
+// - Slabs.  Where two stages of whole rows do not fit (d above 1,692 at
+//   k 100, chunk 8, list_pad 256), a stage holds the tile's 16
+//   rows' next kSlabCols columns: one cp.async.bulk a row, a tile's
+//   slabs streamed in column order, its ids with its first slab.  Each
+//   warp carries its two accumulators across a row's slabs and runs the
+//   XOR butterfly after the last, so the sums keep row_dot's order.
 // - Scoring.  Each consumer warp scores two rows of a tile with two
 //   accumulators, q's first 1,024 floats in registers, and walks a slot's
 //   tiles on its own: the survivor buffer holds every list row of a slot,
@@ -85,6 +91,7 @@ constexpr int kTileRows = 2 * kWarps;       // rows a stage holds: two a warp
 constexpr int kList = 256;                  // gated (entry, slot) list
 constexpr int kQReg = 32;                   // q floats in registers a lane
 constexpr int kMaxStages = 4;
+constexpr int kSlabCols = 32 * kQReg;       // columns a slab stage holds
 constexpr int kGateUnroll = 16;             // assigns a thread loads at once
 // the list path gathers one list entry per consumer thread
 static_assert(kList == kConsumers, "one list entry per consumer thread");
@@ -95,15 +102,15 @@ __host__ __device__ constexpr int cand_cap(int list_pad) {
   return list_pad > kTileRows ? list_pad : kTileRows;
 }
 
-// dynamic shared memory: the ring (stages tiles of kTileRows rows and
-// their ids), the running top-k and its merge scratch, the survivors and
-// their sorted copy, q,
+// dynamic shared memory: the ring (stages tiles of kTileRows rows of
+// `cols` floats, whole rows or slabs, and their ids), the running top-k
+// and its merge scratch, the survivors and their sorted copy, q,
 // the gated list and its per-slot gather buffer, and per slot its size,
 // block offset, gate, match count and overflow flag
 // (kernels/ivf_scan_merge.py:smem_bytes mirrors this sum)
 constexpr long long smem_bytes(int d, int k, int chunk, int list_pad,
-                               int stages) {
-  return static_cast<long long>(stages) * kTileRows * (d + 1) * 4 +
+                               int stages, int cols) {
+  return static_cast<long long>(stages) * kTileRows * (cols + 1) * 4 +
          2LL * k * 8 + 16LL * cand_cap(list_pad) + 4LL * d + 3 * kList * 4 +
          5LL * chunk * 4;
 }
@@ -212,12 +219,38 @@ __device__ __forceinline__ void dot2(const float (&qr)[kQReg],
   s1 = a1;
 }
 
+// a slab's part of two rows' dot products with q, added to a0 and a1:
+// lane l takes columns c0 + l, c0 + l + 32, ... of the w the slab holds
+// (r0, r1 its rows), in row_dot's order; the first slab is q's register
+// part (the wrapper picks slabs only for d > kSlabCols)
+__device__ __forceinline__ void slab_dot2(const float (&qr)[kQReg],
+                                          const float* q_s, const float* r0,
+                                          const float* r1, int c0, int w,
+                                          int lane, float& a0, float& a1) {
+  if (c0 == 0) {
+#pragma unroll
+    for (int i = 0; i < kQReg; ++i) {
+      const int c = lane + 32 * i;
+      a0 = fmaf(qr[i], r0[c], a0);
+      a1 = fmaf(qr[i], r1[c], a1);
+    }
+  } else {
+#pragma unroll 8
+    for (int c = lane; c < w; c += 32) {
+      a0 = fmaf(q_s[c0 + c], r0[c], a0);
+      a1 = fmaf(q_s[c0 + c], r1[c], a1);
+    }
+  }
+}
+
 // the consumer warps' barrier as the packed:: merge helpers take it
 struct ConsumerSync {
   __device__ __forceinline__ void operator()() const { csync(); }
 };
 
-template <bool kStaged>
+// kStaged: list rows come through the ring; kSlab: its stages hold slabs
+// of kSlabCols columns (`cols`), else whole rows (`cols` == d)
+template <bool kStaged, bool kSlab>
 __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
     const float* __restrict__ q, const float* __restrict__ docs,
     const int* __restrict__ ids, const int* __restrict__ boffs,
@@ -226,13 +259,14 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
     const int* __restrict__ dids, const int* __restrict__ dassign,
     const int* __restrict__ gates, float* __restrict__ out_s,
     int* __restrict__ out_i, int* __restrict__ cnt, int d, int k, int chunk,
-    int list_pad, int blk_l, int cap, int stages) {
+    int list_pad, int blk_l, int cap, int stages, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ int wsum[kWarps];
   __shared__ int n_surv_s;   // survivors' slots taken (atomic)
   __shared__ int n_list;     // (entry, slot) matches of the chunk-start pass
-  const long long tile_floats = static_cast<long long>(kTileRows) * d;
+  const long long tile_floats =
+      static_cast<long long>(kTileRows) * (kSlab ? cols : d);
   float* ring = reinterpret_cast<float*>(smem);
   int* ring_ids = reinterpret_cast<int*>(ring + stages * tile_floats);
   long long* run = reinterpret_cast<long long*>(
@@ -262,7 +296,10 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
     // of the consumers.  A tile is up to kTileRows rows and the kTileRows
     // ids from its first row on (the wrapper stages only when blk_l is a
     // multiple of kTileRows, so they lie in the list's padded rows and
-    // start 64-byte aligned); lane 0 copies the rows, lane 1 the ids
+    // start 64-byte aligned); lane 0 copies the rows, lane 1 the ids.
+    // In slab mode a tile is its rows' slabs in column order, a stage
+    // each, lane r copying row r's slab and lane kTileRows the ids with
+    // the first slab
     for (int j = lane; j < chunk; j += 32) {
       size_s[j] = min(sizes[b * chunk + j], list_pad);
       boff_s[j] = boffs[b * chunk + j];
@@ -276,6 +313,7 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
     }
     __syncwarp();
     int pj = 0, pr = 0, t = 0;
+    int pc = 0;   // the tile's next slab's first column (slab mode)
     auto issue = [&]() {
       while (pj < chunk && pr >= size_s[pj]) {
         ++pj;
@@ -289,25 +327,51 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
       }
       const int n = min(kTileRows, size_s[pj] - pr);
       const uint32_t bar = smem_u32(&full[stage]);
-      const uint32_t row_bytes = static_cast<uint32_t>(d) * 4;
       const long long row0 =
           static_cast<long long>(boff_s[pj]) * blk_l + pr;
-      if (lane == 0) {
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                bar),
-            "r"(row_bytes * n + kTileRows * 4)
-            : "memory");
+      if constexpr (kSlab) {
+        const int w = min(cols, d - pc);
+        const uint32_t slab_bytes = static_cast<uint32_t>(w) * 4;
+        const uint32_t id_bytes = pc == 0 ? kTileRows * 4 : 0;
+        if (lane == 0) {
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                  bar),
+              "r"(slab_bytes * n + id_bytes)
+              : "memory");
+        }
+        __syncwarp();
+        if (lane < n) {
+          bulk_load(smem_u32(ring + stage * tile_floats + lane * cols),
+                    docs + (row0 + lane) * d + pc, slab_bytes, bar);
+        } else if (lane == kTileRows && id_bytes) {
+          bulk_load(smem_u32(ring_ids + stage * kTileRows), ids + row0,
+                    id_bytes, bar);
+        }
+        pc += w;
+        if (pc == d) {
+          pc = 0;
+          pr += n;
+        }
+      } else {
+        const uint32_t row_bytes = static_cast<uint32_t>(d) * 4;
+        if (lane == 0) {
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                  bar),
+              "r"(row_bytes * n + kTileRows * 4)
+              : "memory");
+        }
+        __syncwarp();
+        if (lane == 0) {   // a list's rows are contiguous: one copy
+          bulk_load(smem_u32(ring + stage * tile_floats), docs + row0 * d,
+                    row_bytes * n, bar);
+        } else if (lane == 1) {
+          bulk_load(smem_u32(ring_ids + stage * kTileRows), ids + row0,
+                    kTileRows * 4, bar);
+        }
+        pr += n;
       }
-      __syncwarp();
-      if (lane == 0) {   // a list's rows are contiguous: one copy
-        bulk_load(smem_u32(ring + stage * tile_floats), docs + row0 * d,
-                  row_bytes * n, bar);
-      } else if (lane == 1) {
-        bulk_load(smem_u32(ring_ids + stage * kTileRows), ids + row0,
-                  kTileRows * 4, bar);
-      }
-      pr += n;
       ++t;
       return true;
     };
@@ -381,9 +445,22 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
   }
   csync();
 
-  // score a warp's pair of candidates (ids < 0 are not candidates); lane
-  // 0 pushes the first if it beats the running k-th, lane 1 the second;
-  // returns whether this lane pushed
+  // lane 0 pushes the score sa of candidate ida if it beats the running
+  // k-th, lane 1 sb of idb (ids < 0 are not candidates); returns whether
+  // this lane pushed
+  auto push_pair = [&](float sa, float sb, int ida, int idb) {
+    const int id = lane == 0 ? ida : idb;
+    if (lane < 2 && id >= 0) {
+      const long long v = packed::pack(
+          packed::score_to_key(lane == 0 ? sa : sb), id | packed::kNewMark);
+      if (v > run[k - 1]) {
+        cand[atomicAdd(&n_surv_s, 1)] = v;
+        return true;
+      }
+    }
+    return false;
+  };
+  // score a warp's pair of candidates and push them
   auto score_pair = [&](const float* pa, const float* pb, int ida, int idb,
                         auto in_shared) {
     bool pushed = false;
@@ -392,15 +469,7 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
       if (idb < 0) pb = pa;
       float sa, sb;
       dot2<decltype(in_shared)::value>(qr, q_s, pa, pb, d, lane, sa, sb);
-      const int id = lane == 0 ? ida : idb;
-      if (lane < 2 && id >= 0) {
-        const long long v = packed::pack(
-            packed::score_to_key(lane == 0 ? sa : sb), id | packed::kNewMark);
-        if (v > run[k - 1]) {
-          cand[atomicAdd(&n_surv_s, 1)] = v;
-          pushed = true;
-        }
-      }
+      pushed = push_pair(sa, sb, ida, idb);
     }
     return pushed;
   };
@@ -429,16 +498,46 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
     }
   };
 
-  int it = 0;   // tiles consumed
+  int it = 0;   // stages consumed
   for (int j = 0; j < chunk; ++j) {
     const long long slot = b * chunk + j;
     const long long base = static_cast<long long>(boff_s[j]) * blk_l;
     const int size = size_s[j];
     // the list rows: each warp walks the slot's tiles on its own (the
     // buffer holds every row of a slot), releasing each stage as it goes
-    for (int r0 = 0; r0 < size; r0 += kTileRows, ++it) {
+    for (int r0 = 0; r0 < size; r0 += kTileRows) {
       const int ra = r0 + warp, rb = r0 + warp + kWarps;
-      if constexpr (kStaged) {
+      if constexpr (kSlab) {
+        // the tile's slabs in column order: the ids with the first, the
+        // butterfly after the last
+        float a0 = 0.0f, a1 = 0.0f;
+        int ida = -1, idb = -1;
+        for (int c0 = 0; c0 < d; c0 += cols, ++it) {
+          const int stage = it % stages;
+          mbar_wait(smem_u32(&full[stage]), (it / stages) & 1);
+          if (c0 == 0) {
+            const int* tile_ids = ring_ids + stage * kTileRows;
+            ida = ra < size ? tile_ids[warp] : -1;
+            idb = rb < size ? tile_ids[warp + kWarps] : -1;
+          }
+          if (ida >= 0 || idb >= 0) {           // uniform across the warp
+            const float* tile = ring + stage * tile_floats;
+            slab_dot2(qr, q_s, tile + warp * cols,
+                      tile + (warp + kWarps) * cols, c0, min(cols, d - c0),
+                      lane, a0, a1);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+        }
+        if (ida >= 0 || idb >= 0) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+            a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+          }
+          push_pair(a0, a1, ida, idb);
+        }
+      } else if constexpr (kStaged) {
         const int stage = it % stages;
         mbar_wait(smem_u32(&full[stage]), (it / stages) & 1);
         const int* tile_ids = ring_ids + stage * kTileRows;
@@ -448,6 +547,7 @@ __global__ void __launch_bounds__(kThreads) ivf_scan_merge_kernel(
                    rb < size ? tile_ids[warp + kWarps] : -1, InShared{});
         __syncwarp();
         if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+        ++it;
       } else {
         const int ida = ra < size ? __ldg(ids + base + ra) : -1;
         const int idb = rb < size ? __ldg(ids + base + rb) : -1;
@@ -542,22 +642,28 @@ extern "C" int ivf_scan_merge(const float* q, const float* docs,
                               const int* gates, float* out_s, int* out_i,
                               int* cnt, int B, int d, int k, int chunk,
                               int list_pad, int blk_l, int cap, int stages,
-                              void* stream) {
+                              int cols, void* stream) {
   // the wrapper checks k <= 1024, that the shared memory fits the card's
   // opt-in limit, and picks `stages` (0: rows read from global memory)
-  if (stages < 0 || stages > kMaxStages || stages == 1) {
+  // and `cols`, the columns of a row a stage holds: d (whole rows) or
+  // kSlabCols (slabs, for d > kSlabCols)
+  const bool slab = stages > 0 && cols != d;
+  if (stages < 0 || stages > kMaxStages || stages == 1 ||
+      (slab && (cols != kSlabCols || d <= kSlabCols))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      static_cast<size_t>(smem_bytes(d, k, chunk, list_pad, stages));
-  auto kernel = stages ? ivf_scan_merge_kernel<true>
-                       : ivf_scan_merge_kernel<false>;
+  const size_t smem = static_cast<size_t>(
+      smem_bytes(d, k, chunk, list_pad, stages, slab ? cols : d));
+  auto kernel = !stages ? ivf_scan_merge_kernel<false, false>
+                : slab  ? ivf_scan_merge_kernel<true, true>
+                        : ivf_scan_merge_kernel<true, false>;
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (set != cudaSuccess) return static_cast<int>(set);
   kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q, docs, ids, boffs, sizes, run_s, run_i, dvecs, dids, dassign, gates,
-      out_s, out_i, cnt, d, k, chunk, list_pad, blk_l, cap, stages);
+      out_s, out_i, cnt, d, k, chunk, list_pad, blk_l, cap, stages,
+      slab ? cols : d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "row_topk": [_P] * 3 + [_I] * 3 + [_P],
     "slot_roll": [_P] * 15 + [_I] * 4 + [_F, _P],
     "tau_stage": [_P] * 22 + [_I] * 9 + [_F, _P],
-    "ivf_scan_merge": [_P] * 14 + [_I] * 8 + [_P],
+    "ivf_scan_merge": [_P] * 14 + [_I] * 9 + [_P],
     "delta_scan": [_P] * 3 + [_I] * 3 + [_P],
     "flash_attention_f32": [_P] * 4 + [_I] * 5 + [_P],
     "flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],

@@ -21,9 +21,14 @@ list rows streamed into a shared ring by ``cp.async.bulk`` from a
 producer warp, only the candidates above the running k-th merged, only
 the gated buffer rows scored); on a CPU tensor it runs
 :func:`ivf_scan_merge_plain`.  Scores keep the -1e30 sentinel on empty
-slots; ``kernels/ops.py`` maps it back to -inf.
+slots; ``kernels/ops.py`` maps it back to -inf.  The shape picks the
+ring's layout (:func:`ring_layout`): whole rows a stage, slabs of
+``SLAB_COLS`` columns a stage where two stages of whole rows do not fit,
+or no ring.
 Launches with the stream count in ``ivf_scan_merge.delta_launches``,
-those without it in ``ivf_scan_merge.launches``.
+those without it in ``ivf_scan_merge.launches``; those whose rows came
+through the ring, in either layout, in ``ivf_scan_merge.ring_launches``
+as well.
 """
 from __future__ import annotations
 
@@ -40,38 +45,52 @@ VALID_MIN = -1e29    # scores above this are real candidates
 KEY_NEG = sort.key_of(NEG)
 KEY_VALID = sort.key_of(VALID_MIN)
 
-# csrc/ivf_scan_merge.cu's layout: a stage holds TILE_ROWS rows and their
-# ids, the gated list LIST entries
-TILE_ROWS, LIST, MAX_STAGES = 16, 256, 4
+# csrc/ivf_scan_merge.cu's layout: a stage holds TILE_ROWS rows (or, in
+# slab mode, their next SLAB_COLS columns) and their ids, the gated list
+# LIST entries
+TILE_ROWS, LIST, MAX_STAGES, SLAB_COLS = 16, 256, 4, 1024
 STATIC_SMEM = 128    # the kernel's static shared memory, rounded up
 
 
-def smem_bytes(d: int, k: int, chunk: int, list_pad: int,
-               stages: int) -> int:
+def smem_bytes(d: int, k: int, chunk: int, list_pad: int, stages: int,
+               cols: Optional[int] = None) -> int:
     """The kernel's dynamic shared memory (``smem_bytes`` in the source):
-    the ring's rows and ids, the running top-k and its merge scratch, a
-    survivor buffer that holds a slot's list rows and its sorted copy, q,
-    the gated list and gather buffer, five ints per slot.  No term grows
-    with the delta buffer's capacity."""
+    the ring's rows (``cols`` floats of each, whole rows by default) and
+    ids, the running top-k and its merge scratch, a survivor buffer that
+    holds a slot's list rows and its sorted copy, q, the gated list and
+    gather buffer, five ints per slot.  No term grows with the delta
+    buffer's capacity."""
+    cols = d if cols is None else cols
     surv = max(list_pad, TILE_ROWS)      # a slot's list rows
-    return (stages * TILE_ROWS * (d + 1) * 4 + 2 * k * 8
+    return (stages * TILE_ROWS * (cols + 1) * 4 + 2 * k * 8
             + 16 * surv + d * 4 + 3 * LIST * 4
             + 5 * chunk * 4)
 
 
+def ring_layout(d: int, k: int, chunk: int, list_pad: int, aligned: bool,
+                limit: int) -> Tuple[int, int]:
+    """(stages, cols) of the kernel's ring: the most stages (up to
+    MAX_STAGES) of whole rows (cols == d) that fit ``limit`` bytes of
+    shared memory; where two do not fit and d > SLAB_COLS, the most
+    stages of slabs (cols == SLAB_COLS); (0, d), rows and ids read from
+    global memory, when ``cp.async.bulk`` cannot copy them (d not a
+    multiple of 4, or not ``aligned``: docs and ids 16-byte aligned,
+    blk_l a multiple of TILE_ROWS) or two stages of either do not fit."""
+    if d % 4 or not aligned:
+        return 0, d
+    for cols in (d, SLAB_COLS) if d > SLAB_COLS else (d,):
+        for stages in range(MAX_STAGES, 1, -1):
+            if smem_bytes(d, k, chunk, list_pad, stages,
+                          cols) + STATIC_SMEM <= limit:
+                return stages, cols
+    return 0, d
+
+
 def ring_stages(d: int, k: int, chunk: int, list_pad: int, aligned: bool,
                 limit: int) -> int:
-    """Stages of the kernel's ring: the most (up to MAX_STAGES) that fit
-    ``limit`` bytes of shared memory; 0 (rows and ids read from global
-    memory) when ``cp.async.bulk`` cannot copy them (d not a multiple of
-    4, or not ``aligned``: docs and ids 16-byte aligned, blk_l a multiple
-    of TILE_ROWS) or two stages do not fit."""
-    if d % 4 or not aligned:
-        return 0
-    for stages in range(MAX_STAGES, 1, -1):
-        if smem_bytes(d, k, chunk, list_pad, stages) + STATIC_SMEM <= limit:
-            return stages
-    return 0
+    """Stages of the kernel's ring in the layout :func:`ring_layout`
+    picks; 0 where list rows are read from global memory."""
+    return ring_layout(d, k, chunk, list_pad, aligned, limit)[0]
 
 
 def ivf_scan_merge_plain(queries, docs, ids2d, block_offsets, sizes,
@@ -174,10 +193,11 @@ def ivf_scan_merge(queries: torch.Tensor, docs: torch.Tensor,
         raise ValueError(f"ivf_scan_merge: k={k} outside (0, 1024]")
     aligned = (docs.data_ptr() % 16 == 0 and ids2d.data_ptr() % 16 == 0
                and blk_l % TILE_ROWS == 0)
-    stages = ring_stages(d, k, chunk, list_pad, aligned,
-                         _build.max_shared_optin(dev))
+    stages, cols = ring_layout(d, k, chunk, list_pad, aligned,
+                               _build.max_shared_optin(dev))
     _build.check_smem("ivf_scan_merge", dev,
-                      smem_bytes(d, k, chunk, list_pad, stages) + STATIC_SMEM,
+                      smem_bytes(d, k, chunk, list_pad, stages, cols)
+                      + STATIC_SMEM,
                       f"k={k}, d={d}, chunk={chunk}, list_pad={list_pad}")
     out_s = torch.empty((b, chunk, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, chunk, k), dtype=torch.int32, device=dev)
@@ -189,13 +209,16 @@ def ivf_scan_merge(queries: torch.Tensor, docs: torch.Tensor,
             ids2d.data_ptr(), block_offsets.data_ptr(), sizes.data_ptr(),
             run_scores.data_ptr(), run_ids.data_ptr(), *dptr,
             out_s.data_ptr(), out_i.data_ptr(), cnt.data_ptr(), b, d, k,
-            chunk, list_pad, blk_l, cap, stages)
+            chunk, list_pad, blk_l, cap, stages, cols)
         if has_delta:
             ivf_scan_merge.delta_launches += 1
         else:
             ivf_scan_merge.launches += 1
+        if stages:
+            ivf_scan_merge.ring_launches += 1
     return out_s, out_i, cnt
 
 
 ivf_scan_merge.launches = 0
 ivf_scan_merge.delta_launches = 0
+ivf_scan_merge.ring_launches = 0

@@ -476,8 +476,9 @@ def _edge_case(name):
 
 def test_fused_layout_does_not_grow_with_cap():
     """The kernel's shared memory (mirrored by smem_bytes) has no cap term;
-    the ring takes the most stages that fit, none where cp.async.bulk
-    cannot copy the rows and ids."""
+    the ring takes the most stages of whole rows that fit, slabs of
+    1,024 columns where two do not (4,096-d rows), none where
+    cp.async.bulk cannot copy the rows and ids."""
     limit = 232_448                        # an H100's opt-in limit
     assert "cap" not in t_sm.smem_bytes.__code__.co_varnames
     assert t_sm.ring_stages(768, 100, 4, 256, True, limit) == 4
@@ -487,7 +488,7 @@ def test_fused_layout_does_not_grow_with_cap():
     assert t_sm.ring_stages(30, 100, 4, 256, True, limit) == 0  # 120-byte rows
     assert t_sm.ring_stages(768, 100, 4, 256, False, limit) == 0
     assert t_sm.ring_stages(1536, 100, 4, 256, True, limit) == 2
-    assert t_sm.ring_stages(4096, 100, 4, 256, True, limit) == 0  # 2 stages
+    assert t_sm.ring_stages(4096, 100, 4, 256, True, limit) == 3  # slabs
 
 
 @pytest.mark.parametrize("name", ["ties", "empty_slots", "inactive", "k1",
